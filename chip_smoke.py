@@ -1,0 +1,397 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (gaussianavatar_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass (the script exits nonzero otherwise):
+  1. setup: the card's name and power limit, torch / CUDA / nvcc versions,
+     and the build of every CUDA kernel of the port from csrc/ (timed);
+  2. H-fwd against its plain PyTorch version on a random scene at the render
+     shapes (115k gaussians per view, 4 views of 1024^2, 32px tiles, M=4),
+     uncapped and with random per-tile caps;
+  3. the stage-1 novel-pose render (engine/inference.make_renderer) of a
+     synthetic avatar at the canonical widths (query posmap 512, bf16
+     decoder, random weights from a seed) on 32 poses, 4 per call at
+     1024^2, with the kernel's launch count read around that run; then one
+     batch against the same render with the plain blend, and the kernel
+     timed on that batch's own binned inputs beside its bound.
+It prints one JSON line of per-kernel numbers, then, last,
+{"ok": true, "device": {...}}. It needs CUDA and the repository around it.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM published peaks (dense): HBM bandwidth and FP32 outside the
+# tensor cores — the blend is f32 elementwise work
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+# f32 operations H-fwd does per (row, pixel) pair it walks, by how the pair
+# ends (blend_walk_counts classifies them on the run's own inputs):
+#   cut by power > 0: dx, dy (2), power (9), the test (1)              12
+#   cut by alpha < 1/255: the above, exp (1), opacity * exp and the
+#     clamp (2), the test (1)                                          16
+#   the terminating row: the above, 1 - alpha and T * (1 - alpha) (2),
+#     the test (1)                                                     19
+#   blended: the above, the weight (1), three colour multiply-adds (6) 26
+# exp counts as one operation, so the bound errs low.
+BLEND_FLOPS = {"cut_power": 12, "cut_alpha": 16, "terminating": 19, "blended": 26}
+
+# tolerances of the kernel against its plain version on the same inputs.
+# Both round after every multiply and add in the same order (the kernel is
+# built with -fmad=false) and take the transmittance as a sequential product
+# (torch.cumprod over a non-innermost dimension scans sequentially), so the
+# gating decisions, n_contrib, done and T agree exactly; only the colour sum
+# is reassociated (the plain version sums rows with a matmul).
+TOL_COLOR = 2e-5
+TOL_T = 1e-6
+TOL_IMAGE = 2e-5
+
+# the CUDA kernels the stage-1 novel-pose render runs
+PATH_KERNELS = ("blend_fwd",)
+
+
+def _fail(msg):
+    print(f"FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def _time_ms(fn, reps, warmup=2):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _compare(out_k, out_p):
+    """Max abs diffs of colour and T, and the n_contrib / done mismatches."""
+    ck, tk, nk, dk = out_k
+    cp, tp, np_, dp = out_p
+    return {
+        "color": float((ck - cp).abs().max()),
+        "T": float((tk - tp).abs().max()),
+        "ncon_mismatch": int((nk != np_).sum()),
+        "done_mismatch": int((dk != dp).sum()),
+    }
+
+
+def _check_blend(label, res):
+    print(f"  {label}: max|d color| {res['color']:.3e} (tol {TOL_COLOR:g}), "
+          f"max|d T| {res['T']:.3e} (tol {TOL_T:g}), n_contrib mismatches "
+          f"{res['ncon_mismatch']} (tol 0), done mismatches {res['done_mismatch']} (tol 0)")
+    if (res["color"] > TOL_COLOR or res["T"] > TOL_T or res["ncon_mismatch"]
+            or res["done_mismatch"]):
+        _fail(f"H-fwd disagrees with its plain version ({label})")
+
+
+def _blend_bound(args, caps):
+    """Least time for the blend on these inputs: bytes each input read once
+    and each output written once over HBM bandwidth, and the f32 operations
+    the walk of these inputs needs over the FP32 peak; the larger of the two."""
+    import torch
+
+    from gaussianavatar_torch.ops.rasterize_tile import blend_walk_counts
+
+    packed, sorted_vals, offsets, txn, ts, n_tiles = args
+    counts = (offsets[1:] - offsets[:-1]).long()
+    if caps is not None:
+        counts = torch.minimum(counts, caps.long().clamp_min(0))
+    G, PX = counts.shape[0], ts * ts
+    pairs = int(counts.sum())
+    # positions of the pairs the tiles blend, and the distinct rows they read
+    tile = torch.repeat_interleave(torch.arange(G, device=offsets.device), counts)
+    first = torch.cumsum(counts, 0) - counts
+    pos = offsets[:-1].long()[tile] + torch.arange(pairs, device=offsets.device) - first[tile]
+    rows = int(torch.unique(sorted_vals[pos]).numel())
+    bytes_ = 4 * pairs + 64 * rows + 4 * (G + 1) + (4 * G if caps is not None else 0) \
+        + G * PX * 4 * 6
+    walk = blend_walk_counts(*args, caps=caps)
+    flops = float(sum(BLEND_FLOPS[k] * n for k, n in walk.items()))
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return {"pairs": pairs, "rows": rows, "bytes": bytes_, "walk": walk, "flops": flops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _print_walk(label, bound):
+    walk = bound["walk"]
+    total = sum(walk.values())
+    print(f"  {label}: (row, pixel) pairs walked {total}: " + ", ".join(
+        f"{k} {n} ({100 * n / max(total, 1):.1f}%)" for k, n in walk.items())
+        + f"; {bound['flops'] / 1e9:.3f} GFLOP, {bound['bytes'] / 1e6:.1f} MB")
+
+
+def phase_setup():
+    import torch
+
+    from gaussianavatar_torch.utils import cuda_build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: n/a"
+    print(card)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    nvcc = subprocess.run([cuda_build.nvcc_path(), "--version"], capture_output=True,
+                          text=True, timeout=60)
+    print("nvcc: " + nvcc.stdout.strip().splitlines()[-1])
+    t0 = time.perf_counter()
+    built = cuda_build.build_all()
+    print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s (wall, parallel nvcc)")
+    for name, res in built.items():
+        print(f"  {name}: nvcc {res.seconds:.1f} s -> {os.path.relpath(res.path, REPO)}")
+        for line in res.log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print("   ", line.strip())
+    return card
+
+
+def phase_random_scene(device):
+    """H-fwd vs its plain version on a random scene at the render shapes."""
+    import torch
+
+    from gaussianavatar_torch.ops.projection import ProjectedGaussians
+    from gaussianavatar_torch.ops.rasterize_tile import (
+        _bin_gaussians, blend_tiles, blend_tiles_plain,
+    )
+
+    B, N, H, W, ts, MW = 4, 115_000, 1024, 1024, 32, 2
+    g = torch.Generator(device="cpu").manual_seed(0)
+    u = lambda *s: torch.rand(s, generator=g)
+    means2d = torch.stack([u(B, N) * W, u(B, N) * H], -1)
+    sigma = 0.8 + 2.5 * u(B, N)                      # footprint sigma in px
+    rho = (u(B, N) - 0.5) * 0.8
+    cxx, cyy = sigma**2, (sigma * (0.6 + 0.8 * u(B, N)))**2
+    cxy = rho * torch.sqrt(cxx * cyy)
+    det = cxx * cyy - cxy * cxy
+    conics = torch.stack([cyy / det, -cxy / det, cxx / det], -1)
+    lam = 0.5 * (cxx + cyy) + torch.sqrt(torch.clamp_min((0.5 * (cxx - cyy))**2 + cxy**2, 0.1))
+    projs = ProjectedGaussians(means2d=means2d, depths=0.5 + 3 * u(B, N), conics=conics,
+                               radii=torch.ceil(3 * torch.sqrt(lam)))
+    projs = ProjectedGaussians(*(x.to(device) for x in projs))
+    colors = u(B, N, 3).to(device)
+    opac = (0.3 + 0.7 * u(B, N)).to(device)
+
+    ctx = _bin_gaussians(projs, colors, opac, H, W, ts, MW, MW)
+    txn = W // ts
+    n_tiles = txn * (H // ts)
+    args = (ctx.packed, ctx.sorted_vals, ctx.offsets, txn, ts, n_tiles)
+    print(f"  random scene: {B}x{N} gaussians, {int(ctx.offsets[-1])} binned pairs, "
+          f"max/mean per tile {int(ctx.full_counts.max())}/{float(ctx.full_counts.float().mean()):.0f}")
+    caps = (torch.rand(ctx.full_counts.shape, generator=g)
+            * 1.2 * ctx.full_counts.cpu().float()).int().to(device)
+    for label, c in (("uncapped", None), ("capped", caps)):
+        out_k = blend_tiles(*args, caps=c)
+        out_p = blend_tiles_plain(*args, caps=c)
+        torch.cuda.synchronize()
+        _check_blend(label, _compare(out_k, out_p))
+        ms = _time_ms(lambda: blend_tiles(*args, caps=c), reps=20)
+        plain_ms = _time_ms(lambda: blend_tiles_plain(*args, caps=c), reps=3, warmup=1)
+        bound = _blend_bound(args, c)
+        _print_walk(f"random scene, {label}", bound)
+        print(f"  random scene, {label}: {bound['pairs']} pairs blended, kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}) "
+              "per 4-view batch (no PyTorch library call computes this blend)")
+
+
+def make_slice(device):
+    """The main path's setup: a synthetic avatar at the canonical widths
+    (query posmap 512, input posmap 128, c_geom 64, hsize 128, bf16 decoder,
+    random weights from seed 0), its stage-1 renderer from `make_renderer`,
+    and batches of 4 of 32 poses from `synthetic_pose`, 1024^2, white
+    background, a camera that frames the body."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from gaussianavatar_torch.config import Config, ModelParams, NetworkParams, \
+        OptimizationParams, RasterParams
+    from gaussianavatar_torch.engine.inference import InferenceBundle, make_renderer
+    from gaussianavatar_torch.engine.setup import AvatarBundle
+    from gaussianavatar_torch.models.avatar import AvatarNet, build_avatar_assets
+    from gaussianavatar_torch.ops.camera import Camera
+    from gaussianavatar_torch.utils.synthetic import synthetic_body, synthetic_pose
+
+    H = W = 1024
+    B, n_poses = 4, 32
+    cfg = Config(ModelParams(query_posmap_size=512, inp_posmap_size=128),
+                 NetworkParams(), OptimizationParams(), RasterParams())
+    t0 = time.perf_counter()
+    body, uv = synthetic_body(n_rings=48, n_cols=32)
+    J = body.parents.shape[0]
+    assets = build_avatar_assets(body, uv.verts, uv.uvs, uv.faces_v, uv.faces_vt,
+                                 np.zeros(J * 3, np.float32), np.zeros(4, np.float32),
+                                 query_res=cfg.model.query_posmap_size, device=device)
+    torch.manual_seed(0)  # nn.Linear / nn.Conv2d default init draws from it
+    poses = np.stack([synthetic_pose(body, t / n_poses) for t in range(n_poses)])
+    net = AvatarNet(
+        num_frames=n_poses, pose_dim=J * 3, c_geom=cfg.net.c_geom,
+        inp_posmap_size=cfg.model.inp_posmap_size, hsize=cfg.net.hsize,
+        compute_dtype="bfloat16" if cfg.net.bf16_decoder else "float32",
+        pose_init=poses, generator=torch.Generator().manual_seed(0), device=device,
+    ).eval()
+    inf = InferenceBundle(cfg, AvatarBundle(body.to(device), assets, net, frames=None), epoch=0)
+    print(f"  avatar: {assets.num_valid} gaussians (+{assets.query_points.shape[0] - assets.num_valid}"
+          f" padding), query {assets.query_res}, bf16 decoder, set up in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    K = np.array([[1120.0, 0, W / 2], [0, 1120.0, H / 2], [0, 0, 1]], np.float32)
+    cam = Camera.from_extrinsics(np.eye(3, dtype=np.float32),
+                                 np.array([0.0, -0.8, 1.6], np.float32), K, H, W, device=device)
+    rep = lambda x: x[None].expand(B, *x.shape).contiguous()
+
+    def batch_for(start):
+        idx = (np.arange(B) + start) % n_poses
+        return {"pose_idx": idx, "pose_data": poses[idx],
+                "transl_data": np.zeros((B, 3), np.float32),
+                "world_view_transform": rep(cam.world_view_transform),
+                "full_proj_transform": rep(cam.full_proj_transform),
+                "tan_fovx": rep(cam.tan_fovx), "tan_fovy": rep(cam.tan_fovy)}
+
+    # scales of a trained avatar are ~1cm; the warm-up factor at iteration 10
+    # gives random-weight decoder scales (~0.5) that magnitude
+    return SimpleNamespace(render=make_renderer(inf, H, W, with_overflow=True),
+                           batch_for=batch_for, inf=inf, H=H, W=W, B=B, n_poses=n_poses,
+                           iteration=10)
+
+
+def phase_slice(device, card):
+    """The stage-1 novel-pose render of a canonical-width avatar."""
+    import torch
+
+    from gaussianavatar_torch.ops import rasterize_tile
+    from gaussianavatar_torch.utils.cuda_build import LAUNCHES
+
+    s = make_slice(device)
+    render, batch_for, it = s.render, s.batch_for, s.iteration
+    H, W, B, n_poses = s.H, s.W, s.B, s.n_poses
+    torch.cuda.reset_peak_memory_stats()
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+    imgs, overflow = [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for start in range(0, n_poses, B):
+        img, ov = render(batch_for(start), it)
+        imgs.append(img)
+        overflow += int(ov)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  rendered {n_poses} poses at {H}x{W} in {n_poses // B} calls: "
+          f"{n_poses / wall:.2f} frames/s (first call included), peak memory "
+          f"{peak_gb:.2f} GiB, footprint overflow {overflow} pairs, on {card}")
+    print(f"  kernel launches in the main path: {counts}")
+    for name in PATH_KERNELS:
+        if counts[name] < 1:
+            _fail(f"the main path did not launch {name}")
+    launches = counts["blend_fwd"]
+    imgs = torch.cat(imgs)
+    if imgs.shape != (n_poses, 3, H, W) or not bool(torch.isfinite(imgs).all()):
+        _fail(f"render output not finite or of shape {tuple(imgs.shape)}")
+    body_frac = float((imgs < 0.99).any(1).float().mean())
+    print(f"  images finite, {body_frac * 100:.1f}% of pixels covered by the avatar")
+    if body_frac < 0.01:
+        _fail("images are (almost) all background")
+
+    # steady-state rate: the same calls again, everything built and warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for start in range(0, n_poses, B):
+        render(batch_for(start), it)
+    torch.cuda.synchronize()
+    fps = n_poses / (time.perf_counter() - t0)
+    print(f"  steady state: {fps:.2f} frames/s at {H}x{W}, B={B}, on {card}")
+
+    # one batch again, recording the blend's inputs, then with the plain blend
+    real = rasterize_tile.blend_tiles
+    rec = {}
+
+    def recording(*a, **kw):
+        rec["args"], rec["caps"] = a, kw.get("caps", a[6] if len(a) > 6 else None)
+        return real(*a, **kw)
+
+    try:
+        rasterize_tile.blend_tiles = recording
+        img_k = render(batch_for(0), it)[0]
+        rasterize_tile.blend_tiles = rasterize_tile.blend_tiles_plain
+        img_p = render(batch_for(0), it)[0]
+    finally:
+        rasterize_tile.blend_tiles = real
+    d_img = float((img_k - img_p).abs().max())
+    print(f"  one batch, kernel vs plain blend: max|d image| {d_img:.3e} (tol {TOL_IMAGE:g})")
+    if d_img > TOL_IMAGE:
+        _fail("the render through H-fwd disagrees with the plain blend")
+
+    args, caps = rec["args"][:6], rec["caps"]
+    out_k = real(*args)
+    out_p = rasterize_tile.blend_tiles_plain(*args)
+    res = _compare(out_k, out_p)
+    _check_blend("main-path batch", res)
+    ms = _time_ms(lambda: real(*args), reps=20)
+    plain_ms = _time_ms(lambda: rasterize_tile.blend_tiles_plain(*args), reps=3, warmup=1)
+    bound = _blend_bound(args, caps)
+    print(f"  main-path batch: {bound['pairs']} binned pairs, {bound['rows']} gaussian rows")
+    _print_walk("main-path batch", bound)
+    print(f"  H-fwd {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}) per 4-view batch; no library call; on {card}")
+    return {
+        "name": "blend_fwd", "route": "cuda",
+        "source": "gaussianavatar_torch/csrc/blend_fwd.cu",
+        "replaces": "gaussianavatar_tpu/ops/rasterize_tile.py:550",
+        "launches": launches,
+        "max_abs_err": max(res["color"], res["T"]),
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+        "library_ms": None,
+    }
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(REPO, "gaussianavatar_torch")):
+        print("chip_smoke: run it from a checkout of the repository "
+              "(gaussianavatar_torch/ not found beside it)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    device = "cuda"
+    t_all = time.perf_counter()
+    print("phase 1: setup")
+    card = phase_setup()
+    print("phase 2: H-fwd vs plain, random scene at the render shapes")
+    phase_random_scene(device)
+    print("phase 3: stage-1 novel-pose render, canonical widths")
+    kernel = phase_slice(device, card)
+    print(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
+    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
