@@ -14,15 +14,25 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      decoder, random weights from a seed) on 32 poses, 4 per call at
      1024^2, with the kernel's launch count read around that run; then one
      batch against the same render with the plain blend, and the kernel
-     timed on that batch's own binned inputs beside its bound.
+     timed on that batch's own binned inputs beside its bound;
+  4. H-bwd against its plain version on a random scene at the render
+     shapes, uncapped and capped, opacity 1 (the 0.99 clamp bites);
+  5. stage-1 training at the canonical widths (query posmap 512, input 128,
+     c_geom 64, hsize 128, bf16 decoder, B=2, 512^2 frames, 32px tiles,
+     M=9): the port's writer makes 8 frames, `python -m
+     gaussianavatar_torch.train` (its `main`) takes 30 steps, with both
+     kernels' launch counts read around it; then H-bwd against its plain
+     version on the last step's own batch, timed beside its bound.
 It prints one JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {...}}. It needs CUDA and the repository around it.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -42,6 +52,25 @@ FP32_FLOP_PER_S = 67e12
 # exp counts as one operation, so the bound errs low.
 BLEND_FLOPS = {"cut_power": 12, "cut_alpha": 16, "terminating": 19, "blended": 26}
 
+# f32 operations the blend's gradient needs per (row, pixel) pair, by how
+# the pair ends (blend_bwd_walk_counts classifies them on the run's own
+# inputs):
+#   cut by power > 0: dx, dy (2), power (9), the two tests (2)          13
+#   cut by alpha < 1/255: the above, exp, opacity * exp, the clamp and
+#     the test (4)                                                      17
+#   contributing: 17, then 1 - alpha, T / (1 - alpha), the weight (3),
+#     dalpha (13), the suffix colours (9), dpow (2), the nine integrands
+#     (21) and their sums over the tile (9)                             74
+# A pair past its pixel's n_contrib ("past_last") needs none: H-bwd walks
+# it (a tile walks down to its deepest pixel's contributor), but a pixel
+# could start its walk at its own n_contrib, so the bound charges it 0.
+BWD_FLOPS = {"cut_power": 13, "cut_alpha": 17, "contributing": 74}
+# H-bwd against its plain version: per pair and channel within this share
+# of the channel's largest |gradient|. Both round every per-pixel term the
+# same way (-fmad=false); only the sums over a tile's pixels run in another
+# order (the kernel: warp shuffles, then warps in a fixed order).
+TOL_BWD_REL = 1e-5
+
 # tolerances of the kernel against its plain version on the same inputs.
 # Both round after every multiply and add in the same order (the kernel is
 # built with -fmad=false) and take the transmittance as a sequential product
@@ -52,8 +81,10 @@ TOL_COLOR = 2e-5
 TOL_T = 1e-6
 TOL_IMAGE = 2e-5
 
-# the CUDA kernels the stage-1 novel-pose render runs
-PATH_KERNELS = ("blend_fwd",)
+# the CUDA kernels each main path runs
+RENDER_KERNELS = ("blend_fwd",)
+TRAIN_KERNELS = ("blend_fwd", "blend_bwd")
+TRAIN_STEPS = 30
 
 
 def _fail(msg):
@@ -298,7 +329,7 @@ def phase_slice(device, card):
           f"{n_poses / wall:.2f} frames/s (first call included), peak memory "
           f"{peak_gb:.2f} GiB, footprint overflow {overflow} pairs, on {card}")
     print(f"  kernel launches in the main path: {counts}")
-    for name in PATH_KERNELS:
+    for name in RENDER_KERNELS:
         if counts[name] < 1:
             _fail(f"the main path did not launch {name}")
     launches = counts["blend_fwd"]
@@ -363,6 +394,195 @@ def phase_slice(device, card):
     }
 
 
+def _bwd_compare(label, out_k, out_p):
+    """Per-channel max |kernel - plain| against TOL_BWD_REL x the channel's
+    largest |value|; fails on a mismatch or a non-finite value."""
+    from gaussianavatar_torch.ops.rasterize_tile import GRAD_CHANNELS
+
+    if not (bool(out_k.isfinite().all()) and bool(out_p.isfinite().all())):
+        _fail(f"H-bwd gradients not finite ({label})")
+    d = (out_k - out_p).abs().amax(0)
+    scale = out_p.abs().amax(0)
+    rel = float((d / scale.clamp_min(1e-30)).max())
+    print(f"  {label}: max|d| / max|grad| per channel " + ", ".join(
+        f"{c} {float(x):.2e}/{float(m):.2e}" for c, x, m in zip(GRAD_CHANNELS, d, scale))
+        + f"; worst {rel:.2e} (tol {TOL_BWD_REL:g})")
+    if bool((d > TOL_BWD_REL * scale).any()):
+        _fail(f"H-bwd disagrees with its plain version ({label})")
+    return float(d.max())
+
+
+def _bwd_bound(args, caps, n_contrib):
+    """Least time for the blend's gradient on these inputs: each input read
+    once (an id and a 64-byte row per pair below a tile's deepest
+    contributor, finalT / n_contrib / the cotangent per pixel, offsets and
+    caps) and a (9 x f32) gradient written once per such pair (pairs past
+    it are zero); the f32 operations these inputs need (BWD_FLOPS, pairs
+    past their pixel's last contributor charged nothing); the larger of
+    the two."""
+    import torch
+
+    from gaussianavatar_torch.ops.rasterize_tile import _walk_ends, blend_bwd_walk_counts
+
+    packed, sorted_vals, offsets, txn, ts, n_tiles = args
+    ends = _walk_ends(offsets, caps, n_contrib)
+    G, PX = ends.shape[0], ts * ts
+    pairs = int(ends.sum())
+    tile = torch.repeat_interleave(torch.arange(G, device=offsets.device), ends)
+    first = torch.cumsum(ends, 0) - ends
+    pos = offsets[:-1].long()[tile] + torch.arange(pairs, device=offsets.device) - first[tile]
+    rows = int(torch.unique(sorted_vals[pos]).numel())
+    bytes_ = 4 * pairs + 64 * rows + 4 * (G + 1) + (4 * G if caps is not None else 0) \
+        + G * PX * 24 + pairs * 36
+    walk = blend_bwd_walk_counts(*args, n_contrib, caps=caps)
+    flops = float(sum(BWD_FLOPS[k] * walk[k] for k in BWD_FLOPS))
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return {"pairs": pairs, "rows": rows, "bytes": bytes_, "walk": walk, "flops": flops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _time_bwd(label, bwd_args, caps, card):
+    """H-bwd and its plain version timed on the same inputs, with the bound."""
+    from gaussianavatar_torch.ops.rasterize_tile import blend_tiles_bwd, blend_tiles_bwd_plain
+
+    ms = _time_ms(lambda: blend_tiles_bwd(*bwd_args, caps=caps), reps=20)
+    plain_ms = _time_ms(lambda: blend_tiles_bwd_plain(*bwd_args, caps=caps), reps=1, warmup=1)
+    bound = _bwd_bound(bwd_args[:6], caps, bwd_args[7])
+    _print_walk(f"{label} (H-bwd walk)", bound)
+    print(f"  {label}: {bound['pairs']} pairs below the deepest contributors, "
+          f"{bound['rows']} gaussian rows; H-bwd {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); no library call; on {card}")
+    return ms, plain_ms, bound
+
+
+def phase_bwd_random_scene(device, card):
+    """H-bwd vs its plain version on a random scene at the render shapes,
+    every gaussian of opacity 1, uncapped and capped."""
+    import torch
+
+    from gaussianavatar_torch.ops.projection import ProjectedGaussians
+    from gaussianavatar_torch.ops.rasterize_tile import (
+        _bin_gaussians, blend_tiles, blend_tiles_bwd, blend_tiles_bwd_plain,
+    )
+
+    B, N, H, W, ts, MW = 4, 115_000, 1024, 1024, 32, 2
+    g = torch.Generator(device="cpu").manual_seed(1)
+    u = lambda *s: torch.rand(s, generator=g)
+    sigma = 0.8 + 2.5 * u(B, N)
+    projs = ProjectedGaussians(
+        means2d=torch.stack([u(B, N) * W, u(B, N) * H], -1), depths=0.5 + 3 * u(B, N),
+        conics=torch.stack([1 / sigma**2, torch.zeros(B, N), 1 / sigma**2], -1),
+        radii=torch.ceil(3 * sigma))
+    projs = ProjectedGaussians(*(x.to(device) for x in projs))
+    ctx = _bin_gaussians(projs, u(B, N, 3).to(device), torch.ones(B, N, device=device),
+                         H, W, ts, MW, MW)
+    txn = W // ts
+    # the binned prefix of the sorted table, as BlendTiles.backward passes it
+    binned = ctx.sorted_vals[:int(ctx.offsets[-1])]
+    args = (ctx.packed, binned, ctx.offsets, txn, ts, txn * (H // ts))
+    G = ctx.full_counts.shape[0]
+    caps = (torch.rand(G, generator=g) * 1.2 * ctx.full_counts.cpu().float()).int().to(device)
+    g_color = (torch.rand((G, 3, ts * ts), generator=g) - 0.5).to(device)
+    g_T = (torch.rand((G, ts * ts), generator=g) - 0.5).to(device)
+    for label, c in (("uncapped", None), ("capped", caps)):
+        _, T, ncon, _ = blend_tiles(*args, caps=c)
+        bwd_args = (*args, T, ncon, g_color, g_T)
+        out_k = blend_tiles_bwd(*bwd_args, caps=c)
+        out_k2 = blend_tiles_bwd(*bwd_args, caps=c)
+        out_p = blend_tiles_bwd_plain(*bwd_args, caps=c)
+        torch.cuda.synchronize()
+        if not torch.equal(out_k, out_k2):
+            _fail(f"H-bwd differs between two runs on the same inputs ({label})")
+        _bwd_compare(f"random scene, opacity 1, {label}", out_k, out_p)
+        _time_bwd(f"random scene, {label}", bwd_args, c, card)
+
+
+def phase_train(device, card, work):
+    """Stage-1 training at the canonical widths through the port's CLI."""
+    import torch
+
+    from gaussianavatar_torch import train as train_cli
+    from gaussianavatar_torch.data.synthetic_writer import write_synthetic_dataset
+    from gaussianavatar_torch.engine.checkpoint import latest_epoch
+    from gaussianavatar_torch.ops import rasterize_tile
+    from gaussianavatar_torch.ops.rasterize_tile import blend_tiles_bwd_plain, scatter_pair_grads
+    from gaussianavatar_torch.utils.cuda_build import LAUNCHES
+
+    data, out = os.path.join(work, "data"), os.path.join(work, "out")
+    t0 = time.perf_counter()
+    write_synthetic_dataset(data, n_train=8, n_test=1, image_size=512, device=device)
+    print(f"  wrote 8 training frames of 512x512 with the port's writer in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    real_bwd = rasterize_tile.blend_tiles_bwd
+    rec = {}
+
+    def recording(*a, **kw):  # keeps the last step's inputs; launches as before
+        rec["args"], rec["kw"] = a, kw
+        return real_bwd(*a, **kw)
+
+    argv = ["-s", data, "-m", out, "--train_stage", "1", "--dataset_type", "synthetic",
+            "--max_steps", str(TRAIN_STEPS), "--pose_op_start_iter", "0", "--no_lpips"]
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        rasterize_tile.blend_tiles_bwd = recording
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+        t0 = time.perf_counter()
+        train_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+    finally:
+        rasterize_tile.blend_tiles_bwd = real_bwd
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  kernel launches in the training run: {counts} ({TRAIN_STEPS} steps)")
+    for name in TRAIN_KERNELS:
+        if counts[name] != TRAIN_STEPS:
+            _fail(f"the training run launched {name} {counts[name]} times, not once per step")
+
+    records = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    steps = {r["step"]: r for r in records if "step" in r}
+    first, last = steps[1]["total"], steps[TRAIN_STEPS]["total"]
+    rate = (TRAIN_STEPS - 10) / (steps[TRAIN_STEPS]["t"] - steps[10]["t"])
+    print(f"  training: {rate:.2f} it/s steady state (steps 10-{TRAIN_STEPS}), loss "
+          f"{first:.5f} at step 1 -> {last:.5f} at step {TRAIN_STEPS}, peak memory "
+          f"{peak_gb:.2f} GiB, raster overflow {steps[TRAIN_STEPS]['raster_overflow']:.0f} "
+          f"pairs, {wall:.1f} s in all (setup included), on {card}")
+    if not all(math.isfinite(r["total"]) for r in steps.values()) or not last < first:
+        _fail("training loss not finite or not falling")
+    if latest_epoch(out) is None:
+        _fail("no checkpoint after training")
+
+    # the last step's own batch: H-bwd against the plain version, per pair
+    # and through the scatter into the packed table
+    args, caps = rec["args"], rec["kw"].get("caps", rec["args"][10] if len(rec["args"]) > 10
+                                            else None)
+    bwd_args = tuple(a.detach() if torch.is_tensor(a) else a for a in args[:10])
+    print(f"  train batch: {bwd_args[0].shape[0] // 2} gaussians per view (padding included), "
+          f"{int(bwd_args[2][-1])} binned (tile, gaussian) pairs, "
+          f"{int(bwd_args[7].amax(1).max())} deepest contributor")
+    out_k = real_bwd(*bwd_args, caps=caps)
+    out_p = blend_tiles_bwd_plain(*bwd_args, caps=caps)
+    err = _bwd_compare("train batch, per pair", out_k, out_p)
+    n_rows = bwd_args[0].shape[0]
+    _bwd_compare("train batch, packed table", scatter_pair_grads(out_k, bwd_args[1], n_rows)[:, :9],
+                 scatter_pair_grads(out_p, bwd_args[1], n_rows)[:, :9])
+    ms, plain_ms, bound = _time_bwd("train batch", bwd_args, caps, card)
+    return {
+        "name": "blend_bwd", "route": "cuda",
+        "source": "gaussianavatar_torch/csrc/blend_bwd.cu",
+        "replaces": "gaussianavatar_tpu/ops/rasterize_ragged.py:405",
+        "launches": counts["blend_bwd"],
+        "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+        "library_ms": None,
+    }, counts
+
+
 def main():
     try:
         import torch
@@ -384,9 +604,16 @@ def main():
     print("phase 2: H-fwd vs plain, random scene at the render shapes")
     phase_random_scene(device)
     print("phase 3: stage-1 novel-pose render, canonical widths")
-    kernel = phase_slice(device, card)
+    fwd = phase_slice(device, card)
+    print("phase 4: H-bwd vs plain, random scene at the render shapes")
+    phase_bwd_random_scene(device, card)
+    print("phase 5: stage-1 training, canonical widths")
+    with tempfile.TemporaryDirectory(dir=REPO) as work:
+        bwd, train_counts = phase_train(device, card, work)
+    # launches: each main path's run, added (the render's H-fwd, then training's)
+    fwd["launches"] += train_counts["blend_fwd"]
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [fwd, bwd]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

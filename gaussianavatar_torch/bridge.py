@@ -11,6 +11,11 @@ numpy arrays (e.g. `jax.tree.map(np.asarray, state.params)`) and returns the
   - geo_feature NHWC (1,F,F,C) -> NCHW (1,C,F,F), the port's layout
   - pose_embedding, transl_embedding as they are.
 
+`train_state_from_jax` carries a JAX TrainState (params, batch_stats,
+iteration) into the port's TrainState, so both packages can train from the
+same state. Optimizer moments are not carried: a fresh run starts them at
+zero on both sides.
+
 Only numpy and torch here: the caller holds the JAX side.
 """
 
@@ -21,6 +26,9 @@ from typing import Dict
 
 import numpy as np
 import torch
+from torch import nn
+
+from gaussianavatar_torch.engine.train_step import TrainState
 
 
 def _t(a) -> torch.Tensor:
@@ -73,3 +81,12 @@ def state_dict_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tens
     }
     sd.update({f"pop.{k}": v for k, v in pop_state_dict(params["pop"], batch_stats["pop"]).items()})
     return sd
+
+
+def train_state_from_jax(net: nn.Module, optimizer, params: dict, batch_stats: dict,
+                         iteration) -> TrainState:
+    """The stage-1 AvatarNet `net` loaded with a JAX TrainState's params and
+    batch_stats (numpy trees), wrapped with a fresh `optimizer` at the JAX
+    state's iteration."""
+    net.load_state_dict(state_dict_from_jax(params, batch_stats))
+    return TrainState(net, optimizer, int(iteration))

@@ -1,22 +1,29 @@
 """Monocular avatar data (counterpart of gaussianavatar_tpu/data/dataset.py),
-as far as rendering needs it:
+as far as stage-1 training and rendering need it:
 
     data_path/{train,test}/
-        images/*.png|jpg      cam_parms.npz   smpl_parms.pth (or .npz)
+        images/*.png|jpg      masks/*.png
+        cam_parms.npz         (static camera)    cam_parms/<name>.npz (per frame)
+        smpl_parms.pth (or .npz)
 
   - `FrameTable`: the part of the JAX package's `_MonoBase` that restoring a
     trained model needs: the frame count and the per-frame pose table.
+  - `MonoDatasetTrain`: training frames, each image composited onto white
+    where its mask is below 128, decoded once (PIL, imported where a frame
+    is decoded) and cached as uint8; `frame_u8` feeds the train loop's
+    device-resident GT bank.
   - `MonoDatasetNovelPose`: poses from an external folder, a fixed camera.
+  - `collate` and `BatchLoader` (shuffled, drop-last batches).
 
 Items are dicts of numpy arrays, keyed like the JAX package's, with tan-fov
-precomputed. Frame decoding (PIL) comes with the eval and training slices.
+precomputed. The JAX package's native C++ decode path is not ported.
 """
 
 from __future__ import annotations
 
 import os
 from os.path import join
-from typing import Dict
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -58,8 +65,8 @@ def _camera_item(R, T, intrinsic, height, width):
     }
 
 
-def _read_static_cam(folder):
-    with np.load(join(folder, "cam_parms.npz")) as cam:
+def _read_static_cam(folder, name="cam_parms.npz"):
+    with np.load(join(folder, name)) as cam:
         extr, intr = cam["extrinsic"], cam["intrinsic"]
     R = np.asarray(extr[:3, :3], np.float32).reshape(3, 3).transpose(1, 0)
     T = np.asarray(extr[:3, 3], np.float32)
@@ -82,6 +89,107 @@ class FrameTable:
 
     def __len__(self):
         return self.data_length
+
+
+class MonoDatasetTrain(FrameTable):
+    """Training frames of `source_path/train`: per item the frame index, the
+    camera and the smplx rest pose where the body is smplx. The images are
+    read through `frame_u8` (the train loop's GT bank), not per item."""
+
+    def __init__(self, model_parms):
+        super().__init__(model_parms, "train")
+        self.data_folder = join(model_parms.source_path, "train")
+        names = sorted(os.listdir(join(self.data_folder, "images")))
+        self.name_list = [(i, n.split(".")[0]) for i, n in enumerate(names)]
+        self.image_fix = names[0].split(".")[-1]
+        self.no_mask = bool(model_parms.no_mask)
+        if not self.no_mask:
+            self.mask_fix = os.listdir(join(self.data_folder, "masks"))[0].split(".")[-1]
+        self.smpl_type = model_parms.smpl_type
+        self.rest_pose_data = (np.asarray(self.smpl_data["body_pose"][: self.data_length, 66:],
+                                          np.float32) if self.smpl_type == "smplx" else None)
+        self.cam_static = bool(model_parms.cam_static)
+        if self.cam_static:
+            self.R, self.T, self.intrinsic = _read_static_cam(self.data_folder)
+        self._frames: Dict[str, np.ndarray] = {}   # name -> (3, H, W) uint8
+        self._hw: Optional[tuple] = None
+
+    def _load_cam(self, name):
+        if self.cam_static:
+            return self.R, self.T, self.intrinsic
+        return _read_static_cam(join(self.data_folder, "cam_parms"), name + ".npz")
+
+    def _decode(self, name) -> np.ndarray:
+        """The frame composited onto white where the mask is < 128 ->
+        (3, H, W) uint8. 8-bit sources make the uint8 form lossless."""
+        from PIL import Image
+
+        img = np.asarray(Image.open(join(self.data_folder, "images", f"{name}.{self.image_fix}")),
+                         np.float32)
+        if img.ndim == 2:
+            img = img[..., None].repeat(3, -1)
+        img = img[..., :3]
+        if not self.no_mask:
+            mask = np.asarray(Image.open(join(self.data_folder, "masks",
+                                              f"{name}.{self.mask_fix}")))
+            if mask.ndim == 3:
+                mask = mask[..., 0]
+            m = (mask >= 128).astype(np.float32)[..., None]
+            img = img * m + (1 - m) * 255.0
+        img = np.clip(img / 255.0, 0.0, 1.0).astype(np.float32)
+        return np.clip(np.rint(img * 255.0), 0, 255).astype(np.uint8).transpose(2, 0, 1)
+
+    def frame_u8(self, index: int) -> np.ndarray:
+        """Frame `index` as (3, H, W) uint8, decoded on first use."""
+        name = self.name_list[index][1]
+        if name not in self._frames:
+            self._frames[name] = self._decode(name)
+            self._hw = self._frames[name].shape[1:]
+        return self._frames[name]
+
+    def image_hw(self):
+        """(H, W) of the frames, decoding at most one."""
+        if self._hw is None:
+            self.frame_u8(0)
+        return self._hw
+
+    def drop_image_cache(self):
+        """Free the decoded frames (the train loop holds them on the device
+        from then on)."""
+        self._frames.clear()
+
+    def __getitem__(self, index) -> Dict[str, np.ndarray]:
+        pose_idx, name = self.name_list[index]
+        R, T, intrinsic = self._load_cam(name)
+        item = {"pose_idx": np.int32(pose_idx)}
+        item.update(_camera_item(R, T, intrinsic, *self.image_hw()))
+        if self.smpl_type == "smplx":
+            item["rest_pose"] = self.rest_pose_data[pose_idx]
+        return item
+
+
+def collate(items: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    return {k: np.stack([it[k] for it in items]) for k in items[0]}
+
+
+class BatchLoader:
+    """Shuffled (a fixed seed), drop-last batches of a dataset. Items are
+    assembled on the calling thread: once the GT images live on the device
+    an item is a camera and an index."""
+
+    def __init__(self, dataset, batch_size: int):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.rng = np.random.default_rng(0)
+
+    def __len__(self):
+        return len(self.dataset) // self.batch_size
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        order = self.rng.permutation(len(self.dataset))
+        for b in range(len(self)):
+            idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
+            yield collate([self.dataset[int(i)] for i in idxs])
 
 
 class MonoDatasetNovelPose:

@@ -27,7 +27,7 @@ from gaussianavatar_torch.models.avatar import (
     scale_warmup,
 )
 from gaussianavatar_torch.models.body import BodyModel
-from gaussianavatar_torch.ops.rasterize import RasterizeConfig, rasterize_views
+from gaussianavatar_torch.ops.rasterize import RasterizeConfig, raster_config, rasterize_views
 
 # the iteration inference renders at: past the scale warm-up
 INFERENCE_ITERATION = 10**6
@@ -60,16 +60,6 @@ def load_trained(cfg: Config, epoch: Optional[int] = None, device: str = "cuda")
     ckpt.load_checkpoint(cfg.model.model_path, epoch, bundle.net)
     bundle.net.eval()
     return InferenceBundle(cfg=cfg, bundle=bundle, epoch=epoch)
-
-
-def raster_config(cfg: Config) -> RasterizeConfig:
-    """The render-side raster settings: tile size and footprint cap M
-    (`render_max_tiles_per_gaussian`, 0 = the train-side value)."""
-    r = cfg.raster
-    return RasterizeConfig(
-        tile_size=r.tile_size,
-        max_tiles_per_gaussian=r.render_max_tiles_per_gaussian or r.max_tiles_per_gaussian,
-    )
 
 
 def _to_device(batch: dict, device) -> dict:

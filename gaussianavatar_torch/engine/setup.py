@@ -8,7 +8,9 @@ stage-1 network, on the caller's device. Two asset sources:
      (`build_avatar_assets`).
 
 `dataset_type == "synthetic"` swaps the licensed SMPL files for the
-procedural body.
+procedural body. With `train=True` the bundle's frame table is the training
+dataset (`MonoDatasetTrain`, whose first frame gives H and W); the pose and
+transl embeddings start from the split's smpl_parms either way.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from gaussianavatar_torch.config import Config, smpl_canonical_pose, smplx_canonical_pose
-from gaussianavatar_torch.data.dataset import FrameTable
+from gaussianavatar_torch.data.dataset import FrameTable, MonoDatasetTrain
 from gaussianavatar_torch.models.avatar import AvatarAssets, AvatarNet, build_avatar_assets, pad_assets
 from gaussianavatar_torch.models.body import BodyModel, load_body_model
 from gaussianavatar_torch.ops.uv_raster import uv_coord_map
@@ -58,9 +60,9 @@ def _load_reference_assets(mp, betas: np.ndarray, J: int, device) -> Optional[Av
                       uv_coord_map(R)[valid_idx], inv_mats, betas, R, 256, device)
 
 
-def setup_avatar(cfg: Config, device: str = "cuda") -> AvatarBundle:
+def setup_avatar(cfg: Config, device: str = "cuda", train: bool = False) -> AvatarBundle:
     mp, npar = cfg.model, cfg.net
-    frames = FrameTable(mp)
+    frames = MonoDatasetTrain(mp) if train else FrameTable(mp)
     betas = np.asarray(frames.smpl_data["beta"], np.float32).reshape(-1)
 
     if mp.dataset_type == "synthetic":

@@ -1,0 +1,128 @@
+"""The stage-1 train step (counterpart of make_train_step in
+gaussianavatar_tpu/engine/train_step.py):
+
+    GT from the uint8 bank on the device, indexed by pose_idx
+    -> embedding lookup -> POP decode ONCE in training mode (BatchNorm on
+       the statistics of that one copy, as the JAX dedup takes them), then
+       expanded to the batch
+    -> LBS + skinning -> scale warm-up at the step's iteration
+    -> rasterize (H-fwd; H-bwd on the way back)
+    -> loss = scale + offset + L1 * (1 - lambda_dssim)
+              + lambda_dssim * (1 - SSIM) + geo
+    -> backward -> embedding gradients times the pose-optimization gate
+    -> the optimizer groups (engine/optim.py).
+
+Where the JAX step returns a new state, this one updates `TrainState` in
+place: the network's parameters and BatchNorm statistics, the optimizer's
+moments, and the iteration counter. LPIPS and the AIAP regulariser are
+off in this slice of the port; asking for them raises. The stages open
+`train::*` and `render::*` profiler ranges (scripts/torch_train_profile.py
+reads them); each costs one `record_function` per step.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+from torch.profiler import record_function
+
+from gaussianavatar_torch.engine.inference import _to_device
+from gaussianavatar_torch.engine.optim import GroupOptimizer
+from gaussianavatar_torch.models.avatar import (
+    AvatarAssets, AvatarNet, gaussian_attributes, pose_gaussians, scale_warmup,
+)
+from gaussianavatar_torch.models.body import BodyModel
+from gaussianavatar_torch.ops.rasterize import RasterizeConfig, rasterize_views
+from gaussianavatar_torch.ops.ssim import l1_loss, ssim
+
+
+@dataclass
+class TrainState:
+    net: AvatarNet
+    optimizer: GroupOptimizer
+    iteration: int = 0   # optimizer steps taken
+
+
+def make_train_step(
+    net: AvatarNet,
+    body_model: BodyModel,
+    assets: AvatarAssets,
+    opt_cfg,
+    H: int,
+    W: int,
+    bg_color,
+    raster_cfg: RasterizeConfig,
+    gt_bank: torch.Tensor,           # (n_frames, 3, H, W) uint8 on the device
+    train_stage: int = 1,
+    lpips_fn: Optional[Callable] = None,
+    use_aiap: bool = False,
+):
+    """-> train_step(state, batch, w_rgl, pose_opt_gate, lpips_gate) ->
+    (terms, images): one optimizer step on `batch` (numpy arrays keyed as
+    the dataset's items, without the image). `terms` holds the loss terms,
+    `total` and `raster_overflow` as detached scalars; the gates are floats,
+    0 or 1."""
+    if train_stage != 1:
+        raise NotImplementedError("stage-2 training is not ported yet (a later slice of the port)")
+    if lpips_fn is not None or use_aiap:
+        raise NotImplementedError(
+            "LPIPS and AIAP are not in the port's train step yet: they come with the "
+            "optional-terms slice (ROADMAP Queue 1, after eval and the campaign); "
+            "train with --no_lpips and without --use_aiap")
+    device = assets.query_points.device
+    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=device)
+    embeddings = (net.pose_embedding, net.transl_embedding)
+
+    def train_step(state: TrainState, batch: dict, w_rgl: float, pose_opt_gate: float,
+                   lpips_gate: float = 0.0):
+        with record_function("train::step"):
+            return _step(state, batch, w_rgl, pose_opt_gate)
+
+    def _step(state, batch, w_rgl, pose_opt_gate):
+        iteration = state.iteration + 1
+        b = _to_device(batch, device)
+        idx = b["pose_idx"].long().reshape(-1)
+        B = idx.shape[0]
+        gt = gt_bank[idx].float() / 255.0
+        net.train()
+        state.optimizer.zero_grad()
+
+        with record_function("train::decode"):
+            pose, transl = net.lookup(idx)
+            # the stage-1 decoder sees no per-frame input: decode once, expand
+            res, scales, shs = (x.expand(B, -1, -1) for x in net.decode(assets, 1))
+        with record_function("render::pose_gaussians"):
+            world = pose_gaussians(body_model, assets, pose, transl, res,
+                                   rest_pose=b.get("rest_pose"))
+        with record_function("render::attributes"):
+            scales3, rotations, opacity = gaussian_attributes(
+                assets, scale_warmup(scales, iteration))
+        images, overflow = rasterize_views(
+            world, shs, scales3, rotations, opacity,
+            b["world_view_transform"], b["full_proj_transform"],
+            b["tan_fovx"].reshape(B), b["tan_fovy"].reshape(B), H, W, bg, config=raster_cfg)
+
+        with record_function("train::loss"):
+            l1 = (1.0 - opt_cfg.lambda_dssim) * l1_loss(images, gt)
+            ssim_loss = opt_cfg.lambda_dssim * (1.0 - ssim(images, gt))
+            offset_loss = w_rgl * torch.mean(res ** 2)
+            geo_loss = torch.mean(net.geo_feature ** 2)
+            scale_loss = opt_cfg.lambda_scale * torch.mean(scales3)
+            loss = scale_loss + offset_loss + l1 + ssim_loss + geo_loss
+        with record_function("train::backward"):
+            loss.backward()
+
+        with record_function("train::optimizer"):
+            # the epoch gate of pose optimization: zero gradients touch no row
+            for p in embeddings:
+                if p.grad is not None:
+                    p.grad.mul_(pose_opt_gate)
+            state.optimizer.step()
+        state.iteration = iteration
+        terms = dict(l1=l1, ssim=ssim_loss, scale=scale_loss, offset=offset_loss, geo=geo_loss,
+                     total=loss, raster_overflow=overflow.to(torch.float32))
+        return {k: v.detach() for k, v in terms.items()}, images.detach()
+
+    return train_step

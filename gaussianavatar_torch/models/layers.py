@@ -16,13 +16,21 @@ from torch import nn
 BN_EPS = 1e-5  # flax BatchNorm epsilon as the JAX package sets it
 
 
+BN_MOMENTUM = 0.9  # flax: ra = momentum * ra + (1 - momentum) * batch
+
+
 class FlaxBatchNorm(nn.Module):
-    """BatchNorm at inference with flax's arithmetic:
+    """BatchNorm with flax's arithmetic:
     y = (x - mean) * (rsqrt(var + eps) * scale) + bias, in float32, cast to
     the input's dtype. `feature_dim` is the channel axis (1 for NCHW, -1 for
-    channels-last points). Running statistics are buffers, kept in float32;
-    training-mode statistics (flax: biased variance, momentum 0.9) come with
-    the training slice, so a module in training mode refuses to run."""
+    channels-last points). Running statistics are buffers, kept in float32.
+
+    In training mode it normalises with the batch statistics as flax takes
+    them (float32 mean and the biased variance max(0, E[x^2] - E[x]^2) over
+    every axis but the features) and, unless autograd is off, moves the
+    running statistics by flax's rule with momentum 0.9 (torch.nn.BatchNorm
+    would use momentum 0.1 and the unbiased variance). A render under
+    torch.no_grad leaves them as they are."""
 
     def __init__(self, num_features: int, affine: bool = True, feature_dim: int = -1):
         super().__init__()
@@ -37,16 +45,24 @@ class FlaxBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "FlaxBatchNorm runs at inference only (call .eval()); batch "
-                "statistics come with the training slice")
         shape = [1] * x.dim()
         shape[self.feature_dim] = -1
-        mul = torch.rsqrt(self.running_var + BN_EPS)
+        xf = x.float()
+        if self.training:
+            axes = [d for d in range(x.dim()) if d != self.feature_dim % x.dim()]
+            mean = xf.mean(dim=axes)
+            # jnp.maximum, as flax: an even split of the gradient at a tie
+            var = torch.maximum((xf * xf).mean(dim=axes) - mean * mean, torch.zeros_like(mean))
+            if torch.is_grad_enabled():
+                with torch.no_grad():
+                    self.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
+                    self.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + BN_EPS)
         if self.weight is not None:
             mul = mul * self.weight
-        y = (x.float() - self.running_mean.reshape(shape)) * mul.reshape(shape)
+        y = (xf - mean.reshape(shape)) * mul.reshape(shape)
         if self.bias is not None:
             y = y + self.bias.reshape(shape)
         return y.to(x.dtype)

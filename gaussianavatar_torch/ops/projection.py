@@ -8,6 +8,9 @@ Semantics of the CUDA `diff-gaussian-rasterization` preprocess stage:
   - EWA Jacobian with the 1.3*tan_fov clamp on view-space x/y,
   - +0.3 screen-space dilation on the 2D covariance diagonal,
   - radius = ceil(3 * sqrt(max eigenvalue)), NDC -> pixel ((v+1)*S-1)/2.
+
+Differentiable in means and scales (and rotations) through means2d and the
+conics, with the gradient of `jax.grad` of the JAX function.
 """
 
 from __future__ import annotations
@@ -55,8 +58,10 @@ def project_gaussians(
     tz_safe = torch.where(tz.abs() < 1e-8, torch.full_like(tz, 1e-8), tz)
     limx = (1.3 * tan_fovx)[:, None]
     limy = (1.3 * tan_fovy)[:, None]
-    txtz = torch.clamp(tx / tz_safe, -limx, limx)
-    tytz = torch.clamp(ty / tz_safe, -limy, limy)
+    # jnp.clip is maximum-then-minimum, and both split the gradient evenly at
+    # a tie; torch.maximum / minimum do the same (torch.clamp passes it whole)
+    txtz = torch.minimum(torch.maximum(tx / tz_safe, -limx), limx)
+    tytz = torch.minimum(torch.maximum(ty / tz_safe, -limy), limy)
     tx = txtz * tz_safe
     ty = tytz * tz_safe
 
@@ -97,4 +102,6 @@ def project_gaussians(
 
     valid = in_frustum & det_valid
     radii = torch.where(valid, radius, torch.zeros_like(radius))
-    return ProjectedGaussians(means2d=means2d, depths=depths, conics=conics, radii=radii)
+    # radii and depths only bin (tile rects, sort keys): they carry no gradient
+    return ProjectedGaussians(means2d=means2d, depths=depths.detach(), conics=conics,
+                              radii=radii.detach())

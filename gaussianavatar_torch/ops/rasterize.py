@@ -1,6 +1,7 @@
 """Batched rasterization API (counterpart of gaussianavatar_tpu/ops/rasterize.py):
 project (torch ops) -> depth sort + tile binning (torch ops) -> per-tile alpha
-blend (CUDA kernel H-fwd, or its plain version for CPU tensors)."""
+blend (CUDA kernel H-fwd, or its plain version for CPU tensors), differentiable
+through the CUDA kernel H-bwd (ops/rasterize_tile.BlendTiles)."""
 
 from __future__ import annotations
 
@@ -19,6 +20,17 @@ class RasterizeConfig(NamedTuple):
     tile's whole range, or `caps` rows of it."""
     tile_size: int = 32
     max_tiles_per_gaussian: int = 16  # footprint cap M (a perfect square)
+
+
+def raster_config(cfg, train: bool = False) -> RasterizeConfig:
+    """The raster settings of a Config (gaussianavatar_torch.config): tile
+    size and the footprint cap M, `max_tiles_per_gaussian` (9) for training
+    and `render_max_tiles_per_gaussian` (4; 0 = the training value) for
+    rendering, as the JAX package's engine/loop.raster_config(train=)."""
+    r = cfg.raster
+    M = r.max_tiles_per_gaussian if train else \
+        (r.render_max_tiles_per_gaussian or r.max_tiles_per_gaussian)
+    return RasterizeConfig(tile_size=r.tile_size, max_tiles_per_gaussian=M)
 
 
 def rasterize_views(

@@ -9,6 +9,11 @@ Pipeline for a batch of B views:
      (`csrc/blend_fwd.cu`) walks each tile's whole depth-sorted range, or
      takes an optional per-tile cap. Its plain PyTorch version
      `blend_tiles_plain` computes the same function and serves CPU tensors.
+  3. its gradient (`blend_tiles_bwd`): the hand-written CUDA kernel H-bwd
+     (`csrc/blend_bwd.cu`) walks each tile back to front and writes one
+     gradient row per (tile, gaussian) pair; `BlendTiles` pairs it with H-fwd
+     in one autograd Function and scatter-adds the pair rows into the packed
+     table. Its plain version is `blend_tiles_bwd_plain`.
 
 The JAX package blends at most K rows per tile (capacity tiers) because a
 TPU kernel needs static shapes; the port has no capacities. The footprint
@@ -29,7 +34,9 @@ import torch
 from torch.profiler import record_function
 
 from gaussianavatar_torch.ops.projection import ProjectedGaussians
-from gaussianavatar_torch.ops.rasterize_ref import ALPHA_MIN, T_EPS, blend_pixels, gate_terms
+from gaussianavatar_torch.ops.rasterize_ref import (
+    ALPHA_MAX, ALPHA_MIN, T_EPS, blend_pixels, gate_terms,
+)
 
 _INT32_MAX = 2**31 - 1
 
@@ -109,12 +116,13 @@ def _bin_gaussians(
     ops = opacities.reshape(B, N)
     # opacity < 1/255 can never pass the alpha floor: drop at binning (this is
     # how padding gaussians with opacity 0 become free)
-    v = (projs.radii > 0) & (ops >= ALPHA_MIN)
+    v = (projs.radii > 0) & (ops.detach() >= ALPHA_MIN)
     mx = projs.means2d
+    # rects and keys are integers: no gradient flows through them
     x0, y0, spanx, spany, m_dropped = _footprint_rects(
-        mx, projs.radii, v, ts, txn, tyn, MW, MH)
+        mx.detach(), projs.radii.detach(), v, ts, txn, tyn, MW, MH)
 
-    depth_key = torch.clamp_min(projs.depths, 1e-6).contiguous().view(torch.int32) \
+    depth_key = torch.clamp_min(projs.depths.detach(), 1e-6).contiguous().view(torch.int32) \
         >> (32 - depth_bits)
 
     # slot-major (M, B, N) layout, as in the JAX package
@@ -268,15 +276,31 @@ def blend_walk_counts(
     return tot
 
 
-def _check(name, t, dtype, shape=None):
+def _check(fn, name, t, dtype, shape=None):
     if t.device.type != "cuda":
-        raise ValueError(f"blend_tiles: {name} must be a CUDA tensor, got {t.device}")
+        raise ValueError(f"{fn}: {name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
-        raise ValueError(f"blend_tiles: {name} must be {dtype}, got {t.dtype}")
+        raise ValueError(f"{fn}: {name} must be {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"blend_tiles: {name} must have shape {shape}, got {tuple(t.shape)}")
+        raise ValueError(f"{fn}: {name} must have shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"blend_tiles: {name} must be contiguous")
+        raise ValueError(f"{fn}: {name} must be contiguous")
+
+
+def _check_table(fn, packed, sorted_vals, offsets, caps, ts):
+    """Shared argument checks of the two kernels' wrappers -> (G, PX)."""
+    G = offsets.shape[0] - 1
+    PX = ts * ts
+    if not 0 < PX <= 1024:
+        raise ValueError(f"{fn}: tile size {ts} needs 1 to 1024 pixels per tile")
+    _check(fn, "packed", packed, torch.float32)
+    if packed.dim() != 2 or packed.shape[1] != 16:
+        raise ValueError(f"{fn}: packed must be (rows, 16), got {tuple(packed.shape)}")
+    _check(fn, "sorted_vals", sorted_vals, torch.int32)
+    _check(fn, "offsets", offsets, torch.int32, (G + 1,))
+    if caps is not None:
+        _check(fn, "caps", caps, torch.int32, (G,))
+    return G, PX
 
 
 def blend_tiles(
@@ -297,17 +321,7 @@ def blend_tiles(
     from gaussianavatar_torch.utils.cuda_build import LAUNCHES, load_library
 
     lib = load_library("blend_fwd")
-    G = offsets.shape[0] - 1
-    PX = ts * ts
-    if not 0 < PX <= 1024:
-        raise ValueError(f"blend_tiles: tile size {ts} needs 1 to 1024 pixels per tile")
-    _check("packed", packed, torch.float32)
-    if packed.dim() != 2 or packed.shape[1] != 16:
-        raise ValueError(f"blend_tiles: packed must be (rows, 16), got {tuple(packed.shape)}")
-    _check("sorted_vals", sorted_vals, torch.int32)
-    _check("offsets", offsets, torch.int32, (G + 1,))
-    if caps is not None:
-        _check("caps", caps, torch.int32, (G,))
+    G, PX = _check_table("blend_tiles", packed, sorted_vals, offsets, caps, ts)
     dev = packed.device
     color = torch.empty((G, 3, PX), dtype=torch.float32, device=dev)
     T_out = torch.empty((G, PX), dtype=torch.float32, device=dev)
@@ -325,6 +339,215 @@ def blend_tiles(
         raise RuntimeError(f"blend_fwd kernel launch failed: CUDA error {rc}")
     LAUNCHES["blend_fwd"] += 1
     return color, T_out, ncon, done
+
+
+# --------------------------------------------------------------------------
+# The blend's gradient: CUDA kernel H-bwd and its plain PyTorch version
+# --------------------------------------------------------------------------
+
+# per-pair gradient channels, in the order of the JAX kernels' slabs
+GRAD_CHANNELS = ("mx", "my", "ca", "cb", "cc", "r", "g", "b", "op")
+
+
+def _walk_ends(offsets, caps, n_contrib):
+    """Rows of each tile that carry gradient: min(count, the deepest pixel's
+    n_contrib). Pairs past it get zero."""
+    return torch.minimum(_capped_counts(offsets, caps),
+                         n_contrib.amax(dim=1).to(torch.int64))
+
+
+def blend_tiles_bwd_plain(
+    packed: torch.Tensor,        # (B*N, 16) f32, as H-fwd
+    sorted_vals: torch.Tensor,   # (L,) int32
+    offsets: torch.Tensor,       # (G+1,) int32
+    txn: int,
+    ts: int,
+    n_tiles: int,
+    finalT: torch.Tensor,        # (G, ts*ts) f32, H-fwd's T
+    n_contrib: torch.Tensor,     # (G, ts*ts) int32, H-fwd's n_contrib
+    grad_color: torch.Tensor,    # (G, 3, ts*ts) f32
+    grad_T: torch.Tensor,        # (G, ts*ts) f32
+    caps: Optional[torch.Tensor] = None,
+    max_elems: int = 1 << 32,
+) -> torch.Tensor:
+    """Plain PyTorch version of H-bwd: per-pair gradients (L, 9) f32, row i
+    for the pair at sorted position i, channels `GRAD_CHANNELS`.
+
+    The sequential reverse walk of the JAX `_bwd_kernel`, every tile of a
+    group at once: T is rebuilt by division from `finalT`, the suffix colours
+    are carried, and the 0.99 clamp passes its gradient straight through
+    (dpow = gval * opacity * dalpha). Rows past `_walk_ends` stay zero.
+    Groups come from `_tile_groups`; `max_elems` bounds (tiles x rows x
+    pixels) of a group, whose rows tensor is 16/(ts*ts) of that."""
+    L = sorted_vals.shape[0]
+    dev = packed.device
+    out = torch.zeros((L, 9), dtype=torch.float32, device=dev)
+    ends = _walk_ends(offsets, caps, n_contrib)
+    for tiles, px, py, rows, in_range in _tile_groups(packed, sorted_vals, offsets, ends,
+                                                      txn, ts, n_tiles, max_elems):
+        S, K = rows.shape[:2]
+        fT, nc, gT = finalT[tiles], n_contrib[tiles], grad_T[tiles]
+        gr, gg, gb = grad_color[tiles].unbind(1)
+        T = fT
+        ar = ag = ab = torch.zeros_like(fT)
+        sums = torch.zeros((S, K, 9), dtype=torch.float32, device=dev)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        for k in range(K - 1, -1, -1):
+            mx, my, ca, cb, cc, r, g, b, op, valid = (rows[:, k, i:i + 1] for i in range(10))
+            dx = px - mx
+            dy = py - my
+            power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+            gval = torch.exp(power)
+            alpha = torch.clamp_max(op * gval, ALPHA_MAX)
+            m = (in_range[:, k:k + 1] & (valid > 0) & (power <= 0.0) & (alpha >= ALPHA_MIN)
+                 & (k < nc))
+            one_m = 1.0 - alpha
+            Tn = torch.where(m, T / one_m, T)
+            wT = torch.where(m, alpha * Tn, zero)
+            dalpha = ((r - ar) * gr + (g - ag) * gg + (b - ab) * gb) * Tn + (-fT / one_m) * gT
+            dalpha = torch.where(m, dalpha, zero)
+            ar = torch.where(m, alpha * r + one_m * ar, ar)
+            ag = torch.where(m, alpha * g + one_m * ag, ag)
+            ab = torch.where(m, alpha * b + one_m * ab, ab)
+            dpow = torch.where(m, gval * op * dalpha, zero)
+            sums[:, k] = torch.stack([
+                dpow * (ca * dx + cb * dy),
+                dpow * (cb * dx + cc * dy),
+                -0.5 * dx * dx * dpow,
+                -dx * dy * dpow,
+                -0.5 * dy * dy * dpow,
+                wT * gr,
+                wT * gg,
+                wT * gb,
+                torch.where(m, gval * dalpha, zero),
+            ], dim=-1).sum(dim=1)
+            T = Tn
+        pos = offsets[tiles].to(torch.int64)[:, None] + torch.arange(K, device=dev)[None]
+        out[pos[in_range]] = sums[in_range]
+    return out
+
+
+def blend_bwd_walk_counts(
+    packed: torch.Tensor,
+    sorted_vals: torch.Tensor,
+    offsets: torch.Tensor,
+    txn: int,
+    ts: int,
+    n_tiles: int,
+    n_contrib: torch.Tensor,
+    caps: Optional[torch.Tensor] = None,
+    max_elems: int = 1 << 24,
+) -> dict:
+    """The (row, pixel) pairs H-bwd walks on these inputs, by how each ends:
+    `past_last` (the row lies at or past the pixel's n_contrib), `cut_power`
+    (power > 0), `cut_alpha` (alpha < 1/255) and `contributing`. Every pixel
+    of a tile walks the tile's rows below `_walk_ends`. Arguments as
+    `blend_tiles_bwd_plain`; used to bound the kernel's work, nowhere on the
+    training path."""
+    ends = _walk_ends(offsets, caps, n_contrib)
+    tot = dict.fromkeys(("past_last", "cut_power", "cut_alpha", "contributing"), 0)
+    for tiles, px, py, rows, in_range in _tile_groups(packed, sorted_vals, offsets, ends,
+                                                      txn, ts, n_tiles, max_elems):
+        opac = torch.where(rows[..., 9] > 0, rows[..., 8], torch.zeros_like(rows[..., 8]))
+        power, alpha = gate_terms(px, py, rows[..., 0:2], rows[..., 2:5], opac)
+        k = torch.arange(rows.shape[1], device=rows.device)[None, :, None]
+        walked = in_range[..., None].expand_as(power)
+        past = walked & (k >= n_contrib[tiles][:, None, :])
+        cut_power = walked & ~past & (power > 0.0)
+        cut_alpha = walked & ~past & ~cut_power & (alpha < ALPHA_MIN)
+        tot["past_last"] += int(past.sum())
+        tot["cut_power"] += int(cut_power.sum())
+        tot["cut_alpha"] += int(cut_alpha.sum())
+        tot["contributing"] += int((walked & ~past & ~cut_power & ~cut_alpha).sum())
+    return tot
+
+
+def blend_tiles_bwd(
+    packed: torch.Tensor,
+    sorted_vals: torch.Tensor,
+    offsets: torch.Tensor,
+    txn: int,
+    ts: int,
+    n_tiles: int,
+    finalT: torch.Tensor,
+    n_contrib: torch.Tensor,
+    grad_color: torch.Tensor,
+    grad_T: torch.Tensor,
+    caps: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The blend's gradient per (tile, gaussian) pair. CUDA tensors launch
+    the H-bwd kernel (built from `csrc/blend_bwd.cu` on first use) on the
+    current stream; CPU tensors, and only they, take
+    `blend_tiles_bwd_plain`. Output as `blend_tiles_bwd_plain`, one row per
+    entry of `sorted_vals`, which must hold at least offsets[-1] entries
+    (the binned prefix is enough). Each launch adds one to
+    `cuda_build.LAUNCHES["blend_bwd"]`."""
+    if packed.device.type == "cpu":
+        return blend_tiles_bwd_plain(packed, sorted_vals, offsets, txn, ts, n_tiles,
+                                     finalT, n_contrib, grad_color, grad_T, caps)
+    from gaussianavatar_torch.utils.cuda_build import LAUNCHES, load_library
+
+    lib = load_library("blend_bwd")
+    fn_name = "blend_tiles_bwd"
+    G, PX = _check_table(fn_name, packed, sorted_vals, offsets, caps, ts)
+    if PX % 32:
+        raise ValueError(f"{fn_name}: ts*ts ({PX}) must be a multiple of 32 (whole warps)")
+    _check(fn_name, "finalT", finalT, torch.float32, (G, PX))
+    _check(fn_name, "n_contrib", n_contrib, torch.int32, (G, PX))
+    _check(fn_name, "grad_color", grad_color, torch.float32, (G, 3, PX))
+    _check(fn_name, "grad_T", grad_T, torch.float32, (G, PX))
+    grads = torch.zeros((sorted_vals.shape[0], 9), dtype=torch.float32, device=packed.device)
+    fn = lib.ga_blend_bwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(packed.device).cuda_stream
+    rc = fn(packed.data_ptr(), sorted_vals.data_ptr(), offsets.data_ptr(),
+            caps.data_ptr() if caps is not None else None,
+            G, n_tiles, txn, ts,
+            finalT.data_ptr(), n_contrib.data_ptr(), grad_color.data_ptr(), grad_T.data_ptr(),
+            grads.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"blend_bwd kernel launch failed: CUDA error {rc}")
+    LAUNCHES["blend_bwd"] += 1
+    return grads
+
+
+def scatter_pair_grads(pair_grads: torch.Tensor, sorted_vals: torch.Tensor,
+                       n_rows: int) -> torch.Tensor:
+    """Per-pair gradients (L, 9) -> the packed table's gradient (n_rows, 16):
+    each pair's row added into its gaussian's (`index_add_`, the counterpart
+    of the JAX gather's VJP; on the card its atomics add in no fixed order)."""
+    d = torch.zeros((n_rows, 9), dtype=pair_grads.dtype, device=pair_grads.device)
+    d.index_add_(0, sorted_vals.to(torch.int64), pair_grads)
+    return torch.nn.functional.pad(d, (0, 7))
+
+
+class BlendTiles(torch.autograd.Function):
+    """The differentiable tile blend: H-fwd forward, H-bwd backward.
+    apply(packed, sorted_vals, offsets, caps, txn, ts, n_tiles) ->
+    (color, T, n_contrib, done) as `blend_tiles`; the gradient reaches
+    `packed` only (n_contrib and done carry none)."""
+
+    @staticmethod
+    def forward(ctx, packed, sorted_vals, offsets, caps, txn, ts, n_tiles):
+        color, T, ncon, done = blend_tiles(packed, sorted_vals, offsets, txn, ts, n_tiles, caps)
+        ctx.mark_non_differentiable(ncon, done)
+        ctx.save_for_backward(packed, sorted_vals, offsets, caps, T, ncon)
+        ctx.geometry = (txn, ts, n_tiles)
+        return color, T, ncon, done
+
+    @staticmethod
+    def backward(ctx, g_color, g_T, _g_ncon, _g_done):
+        packed, sorted_vals, offsets, caps, T, ncon = ctx.saved_tensors
+        # unbinned slots sort last: the pair gradients and their scatter need
+        # only the binned prefix (one host read of its length per backward)
+        sorted_vals = sorted_vals[:int(offsets[-1])]
+        with record_function("render::blend_bwd"):
+            pair = blend_tiles_bwd(packed, sorted_vals, offsets, *ctx.geometry, T, ncon,
+                                   g_color.contiguous(), g_T.contiguous(), caps)
+        with record_function("render::scatter_bwd"):
+            d_packed = scatter_pair_grads(pair, sorted_vals, packed.shape[0])
+        return d_packed, None, None, None, None, None, None
 
 
 def _untile(x: torch.Tensor, txn: int, tyn: int, ts: int, height: int, width: int) -> torch.Tensor:
@@ -346,7 +569,9 @@ def rasterize_views_binned(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Render a batch of views -> ((B, 3, H, W) image, () overflow: the
     gaussian-tile pairs dropped by the footprint cap and by `caps`; 0 means
-    every binned pair was blendable)."""
+    every binned pair was blendable). Differentiable in the projected means,
+    conics, colours and opacities through `BlendTiles`; the cotangent of T
+    that reaches H-bwd is sum_c bg_c * dL/dimg_c."""
     ts = config.tile_size
     M = config.max_tiles_per_gaussian
     MW = math.isqrt(M)
@@ -361,8 +586,8 @@ def rasterize_views_binned(
     if caps is not None:
         caps = caps.to(torch.int32).contiguous()
     with record_function("render::blend"):
-        color_t, T_t, _, _ = blend_tiles(ctx.packed, ctx.sorted_vals, ctx.offsets,
-                                         txn, ts, n_tiles, caps)
+        color_t, T_t, _, _ = BlendTiles.apply(ctx.packed, ctx.sorted_vals, ctx.offsets, caps,
+                                              txn, ts, n_tiles)
     overflow = ctx.m_dropped.to(torch.int64)
     if caps is not None:
         full = ctx.full_counts.to(torch.int64)

@@ -24,16 +24,17 @@ _PKG = dirname(dirname(abspath(__file__)))
 BUILD_DIR = join(dirname(_PKG), "build", "kernels")
 
 # kernel name -> source under the package
-SOURCES = {"blend_fwd": "csrc/blend_fwd.cu"}
+SOURCES = {"blend_fwd": "csrc/blend_fwd.cu", "blend_bwd": "csrc/blend_bwd.cu"}
 
 # kernel name -> launches so far in this process. Each wrapper adds one
 # where it launches its kernel, and nowhere else, so a run can show which
 # kernels its main path went through.
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
-# -fmad=false: no fused multiply-adds, so the kernel rounds after every
-# multiply and add exactly as the plain PyTorch version does; the gating
-# tests (alpha >= 1/255, T >= 1e-4) then decide the same way on both.
+# -fmad=false: no fused multiply-adds, so the kernels round after every
+# multiply and add exactly as their plain PyTorch versions do; the gating
+# tests (alpha >= 1/255, T >= 1e-4) then decide the same way on both, and
+# the per-pixel gradient terms agree bit for bit.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -20,13 +20,47 @@ import sys
 import time
 from collections import defaultdict
 
+import torch
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 
-def main():
-    import torch
+def range_times(events, prefixes, since=None):
+    """Per `record_function` range whose name starts with one of `prefixes`:
+    host ms (time inside the range on the host) and device ms (the kernels
+    that start inside the range's device-side span; without such spans, the
+    kernels the profiler linked to the range). Also device ms by kernel name
+    and a note of how device time was attributed. Only events that start at
+    or after `since` (profiler microseconds) count. A kernel launched
+    through ctypes (H-fwd, H-bwd) is linked to no torch op, hence the spans."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    host, linked = defaultdict(float), defaultdict(float)
+    spans = defaultdict(list)
+    kernels, kernel_times = defaultdict(float), []
+    for e in events:
+        if since is not None and e.time_range.start < since:
+            continue
+        if e.name.startswith(prefixes):
+            if e.device_type == cpu:
+                host[e.name] += e.cpu_time_total / 1e3
+                linked[e.name] += e.device_time_total / 1e3
+            elif e.device_type == cuda:
+                spans[e.name].append((e.time_range.start, e.time_range.end))
+        elif e.device_type == cuda:
+            kernels[e.name] += e.self_device_time_total / 1e3
+            kernel_times.append((e.time_range.start, e.self_device_time_total / 1e3))
+    dev = {}
+    for name in host:
+        dev[name] = sum(ms for t, ms in kernel_times
+                        if any(a <= t < b for a, b in spans[name])) if spans[name] \
+            else linked[name]
+    how = "kernels inside each range's device span" if any(spans.values()) \
+        else "kernels linked to each range"
+    return host, dev, kernels, how
 
+
+def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--calls", type=int, default=8)
     args = ap.parse_args()
@@ -57,31 +91,7 @@ def main():
             s.render(b, s.iteration)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
-    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    host, linked = defaultdict(float), defaultdict(float)
-    spans = defaultdict(list)   # a range's device-side spans (its GPU annotation)
-    kernels, kernel_times = defaultdict(float), []
-    for e in events:
-        if e.name.startswith("render::"):
-            if e.device_type == cpu:
-                host[e.name] += e.cpu_time_total / 1e3
-                linked[e.name] += e.device_time_total / 1e3
-            elif e.device_type == cuda:
-                spans[e.name].append((e.time_range.start, e.time_range.end))
-        elif e.device_type == cuda:
-            kernels[e.name] += e.self_device_time_total / 1e3
-            kernel_times.append((e.time_range.start, e.self_device_time_total / 1e3))
-    # a kernel launched through ctypes (H-fwd) is linked to no torch op, so a
-    # range's device time is the kernels that start inside its device-side
-    # span; without such spans, the kernels the profiler linked to the range
-    dev = {}
-    for name in host:
-        dev[name] = sum(ms for t, ms in kernel_times
-                        if any(a <= t < b for a, b in spans[name])) if spans[name] \
-            else linked[name]
-    how = "kernels inside each range's device span" if any(spans.values()) \
-        else "kernels linked to each range"
+    host, dev, kernels, how = range_times(prof.events(), ("render::",))
     busy_ms = sum(kernels.values())
     print(f"stage-1 render, {s.B} frames of {s.H}x{s.W} per call, {n} calls under "
           f"torch.profiler, per call, on {card}:")

@@ -1,0 +1,82 @@
+"""Where the time of the port's stage-1 training step goes, on one card.
+
+Writes chip_smoke.py's training data (8 synthetic frames of 512^2 from the
+port's writer) into a temporary directory and runs the port's training CLI
+(`gaussianavatar_torch.train.main`, canonical widths: query posmap 512,
+bf16 decoder, B=2, 32px tiles, M=9) under torch.profiler. The stages are the
+`train::*` ranges of engine/train_step.py (decode, loss, backward,
+optimizer, the whole step) and the `render::*` ranges the rasterizer opens
+(pose_gaussians, attributes, projection, binning, blend, untile, and on the
+way back blend_bwd and scatter_bwd). Steps after the first `--warmup` count.
+Per step it prints each stage's host time and the device time of the
+kernels launched in it, then the step's wall time, the device-busy share
+and the kernels by device time.
+
+    python3 scripts/torch_train_profile.py [--steps 20] [--warmup 10]
+"""
+
+import argparse
+import os
+import subprocess
+import sys
+import tempfile
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.join(REPO, "scripts"))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--warmup", type=int, default=10)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_train_profile: needs CUDA", file=sys.stderr)
+        return 2
+    from torch_render_profile import range_times
+
+    from gaussianavatar_torch import train as train_cli
+    from gaussianavatar_torch.data.synthetic_writer import write_synthetic_dataset
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    print(card)
+    with tempfile.TemporaryDirectory(dir=REPO) as work:
+        data, out = os.path.join(work, "data"), os.path.join(work, "out")
+        write_synthetic_dataset(data, n_train=8, n_test=1, image_size=512, device="cuda")
+        argv = ["-s", data, "-m", out, "--train_stage", "1", "--dataset_type", "synthetic",
+                "--max_steps", str(args.warmup + args.steps), "--pose_op_start_iter", "0",
+                "--no_lpips", "--quiet"]
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            train_cli.main(argv)
+            torch.cuda.synchronize()
+    events = prof.events()
+    cpu = torch.autograd.DeviceType.CPU
+    steps = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == "train::step" and e.device_type == cpu)
+    window = steps[args.warmup:]
+    since, until = window[0][0], window[-1][1]
+    n = len(window)
+    host, dev, kernels, how = range_times(
+        [e for e in events if e.time_range.start < until], ("train::", "render::"), since)
+    wall_ms = (until - since) / 1e3
+    busy_ms = sum(kernels.values())
+    print(f"stage-1 training, B=2 of 512x512, canonical widths, steps {args.warmup + 1}-"
+          f"{args.warmup + n} under torch.profiler, per step, on {card}:")
+    print(f"  {'range':26s} {'host ms':>9s} {'device ms':>10s}  (device: {how})")
+    for name in sorted(host, key=lambda k: -dev[k]):
+        print(f"  {name:26s} {host[name] / n:9.3f} {dev[name] / n:10.3f}")
+    print(f"  step: {wall_ms / n:.3f} ms wall under the profiler ({n * 1e3 / wall_ms:.2f} it/s); "
+          f"device busy {busy_ms / n:.3f} ms per step, {100 * busy_ms / wall_ms:.1f}% of the wall")
+    print("kernels by device time, per step:")
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:15]:
+        print(f"  {ms / n:8.3f} ms  {100 * ms / busy_ms:5.1f}%  {name[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

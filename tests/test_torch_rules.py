@@ -1,7 +1,8 @@
 """Rules of the port: it imports nothing of JAX, its entry points run on the
 card unless asked for the CPU and never fall back on their own, its config
-and checkpoint files interoperate, and H-fwd matches its plain version on
-the card (that test skips without CUDA)."""
+and checkpoint files interoperate, and H-fwd and H-bwd build, count their
+launches, refuse what they do not take and match their plain versions on
+the card (those tests skip without CUDA)."""
 
 import ast
 import dataclasses
@@ -83,13 +84,33 @@ def test_kernel_call_raises_instead_of_falling_back(monkeypatch):
                        meta((5,), torch.int32), 2, 16, 4)
 
 
+def test_backward_kernel_call_raises_instead_of_falling_back(monkeypatch):
+    """As above, for H-bwd."""
+    from gaussianavatar_torch.utils import cuda_build
+
+    def broken_loader(name):
+        raise RuntimeError(f"cannot build {name}")
+
+    def plain_must_not_run(*a, **kw):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(cuda_build, "load_library", broken_loader)
+    monkeypatch.setattr(tt, "blend_tiles_bwd_plain", plain_must_not_run)
+    meta = lambda shape, dt=torch.float32: torch.empty(shape, dtype=dt, device="meta")
+    with pytest.raises(RuntimeError, match="cannot build blend_bwd"):
+        tt.blend_tiles_bwd(meta((8, 16)), meta((8,), torch.int32), meta((5,), torch.int32),
+                           2, 16, 4, meta((4, 256)), meta((4, 256), torch.int32),
+                           meta((4, 3, 256)), meta((4, 256)))
+
+
 def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
     import inspect
 
-    from gaussianavatar_torch import render_novel_pose
-    from gaussianavatar_torch.engine import inference
+    from gaussianavatar_torch import render_novel_pose, train
+    from gaussianavatar_torch.engine import inference, loop
 
     assert inspect.signature(inference.load_trained).parameters["device"].default == "cuda"
+    assert inspect.signature(loop.train).parameters["device"].default == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tconfig.Config(tconfig.ModelParams(model_path=str(tmp_path)), tconfig.NetworkParams(),
                          tconfig.OptimizationParams(), tconfig.RasterParams())
@@ -97,6 +118,8 @@ def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
         inference.load_trained(cfg)
     with pytest.raises(RuntimeError, match="CUDA device requested"):
         render_novel_pose.main(["-m", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        train.main(["-s", str(tmp_path), "-m", str(tmp_path / "out")])
 
 
 def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):
@@ -180,3 +203,68 @@ def test_blend_kernel_matches_plain_on_card(cuda_device):
         torch.testing.assert_close(ck, cp, atol=2e-5, rtol=0)
         torch.testing.assert_close(tk, tp, atol=1e-6, rtol=0)
         assert torch.equal(nk, np_) and torch.equal(dk, dp)
+
+
+def _random_blend_inputs(device, opaque):
+    """A binned random scene on `device`, H-fwd's outputs on it, a random
+    cotangent and random per-tile caps."""
+    from gaussianavatar_torch.ops.projection import ProjectedGaussians
+
+    g = torch.Generator().manual_seed(2)
+    B, N, H, W, ts = 2, 3000, 96, 128, 16
+    u = lambda *s: torch.rand(s, generator=g)
+    sig = 1.0 + 3.0 * u(B, N)
+    projs = ProjectedGaussians(
+        means2d=torch.stack([u(B, N) * W, u(B, N) * H], -1),
+        depths=0.5 + u(B, N),
+        conics=torch.stack([1 / sig**2, torch.zeros(B, N), 1 / sig**2], -1),
+        radii=torch.ceil(3 * sig),
+    )
+    projs = ProjectedGaussians(*(x.to(device) for x in projs))
+    opac = torch.ones(B, N) if opaque else 0.4 + 0.6 * u(B, N)
+    ctx = tt._bin_gaussians(projs, u(B, N, 3).to(device), opac.to(device), H, W, ts, 2, 2)
+    txn = W // ts
+    args = (ctx.packed, ctx.sorted_vals, ctx.offsets, txn, ts, txn * (H // ts))
+    G = ctx.full_counts.shape[0]
+    caps = (u(G) * 1.2 * ctx.full_counts.cpu()).int().to(device)
+    cot = (u(G, 3, ts * ts).to(device) - 0.5, u(G, ts * ts).to(device) - 0.5)
+    return args, caps, cot
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opaque", [False, True], ids=["mixed", "opaque"])
+def test_blend_bwd_kernel_matches_plain_on_card(cuda_device, opaque):
+    """H-bwd against its plain version, uncapped and capped: per pair and
+    channel within 1e-5 of the channel's largest |gradient| (sums over a
+    tile's pixels in another order), and bit-identical across two runs."""
+    args, caps, (g_color, g_T) = _random_blend_inputs(cuda_device, opaque)
+    for c in (None, caps):
+        _, T, ncon, _ = tt.blend_tiles(*args, caps=c)
+        k1 = tt.blend_tiles_bwd(*args, T, ncon, g_color, g_T, caps=c)
+        k2 = tt.blend_tiles_bwd(*args, T, ncon, g_color, g_T, caps=c)
+        p = tt.blend_tiles_bwd_plain(*args, T, ncon, g_color, g_T, caps=c)
+        assert torch.equal(k1, k2)
+        assert bool(torch.isfinite(k1).all())
+        scale = p.abs().amax(0)
+        assert bool((scale > 0).all())
+        assert bool(((k1 - p).abs().amax(0) <= 1e-5 * scale).all()), ((k1 - p).abs().amax(0), scale)
+
+
+@pytest.mark.gpu
+def test_blend_bwd_kernel_rules_on_card(cuda_device):
+    """H-bwd builds, counts one launch per call, and refuses CPU tensors,
+    wrong shapes and wrong types instead of running."""
+    from gaussianavatar_torch.utils import cuda_build
+
+    assert os.path.exists(cuda_build.build_all(["blend_bwd"])["blend_bwd"].path)
+    args, _, (g_color, g_T) = _random_blend_inputs(cuda_device, False)
+    _, T, ncon, _ = tt.blend_tiles(*args)
+    before = cuda_build.LAUNCHES["blend_bwd"]
+    tt.blend_tiles_bwd(*args, T, ncon, g_color, g_T)
+    assert cuda_build.LAUNCHES["blend_bwd"] == before + 1
+    bad = {"cpu": (T.cpu(), ncon, g_color, g_T), "shape": (T, ncon, g_color[:, :2], g_T),
+           "dtype": (T, ncon.float(), g_color, g_T)}
+    for name, rest in bad.items():
+        with pytest.raises(ValueError):
+            tt.blend_tiles_bwd(*args, *rest)
+    assert cuda_build.LAUNCHES["blend_bwd"] == before + 1
