@@ -21,8 +21,9 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      c_geom 64, hsize 128, bf16 decoder, B=2, 512^2 frames, 32px tiles,
      M=9): the port's writer makes 8 frames, `python -m
      gaussianavatar_torch.train` (its `main`) takes 30 steps, with both
-     kernels' launch counts read around it; then H-bwd against its plain
-     version on the last step's own batch, timed beside its bound.
+     kernels' launch counts read around it; then H-fwd and H-bwd against
+     their plain versions on the last step's own batch, each timed beside
+     its bound.
 It prints one JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {...}}. It needs CUDA and the repository around it.
 """
@@ -516,10 +517,15 @@ def phase_train(device, card, work):
     print(f"  wrote 8 training frames of 512x512 with the port's writer in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    real_bwd = rasterize_tile.blend_tiles_bwd
+    real_fwd, real_bwd = rasterize_tile.blend_tiles, rasterize_tile.blend_tiles_bwd
     rec = {}
 
-    def recording(*a, **kw):  # keeps the last step's inputs; launches as before
+    # keep the last step's inputs of both kernels; they launch as before
+    def recording_fwd(*a, **kw):
+        rec["fwd_args"], rec["fwd_kw"] = a, kw
+        return real_fwd(*a, **kw)
+
+    def recording(*a, **kw):
         rec["args"], rec["kw"] = a, kw
         return real_bwd(*a, **kw)
 
@@ -527,7 +533,7 @@ def phase_train(device, card, work):
             "--max_steps", str(TRAIN_STEPS), "--pose_op_start_iter", "0", "--no_lpips"]
     torch.cuda.reset_peak_memory_stats()
     try:
-        rasterize_tile.blend_tiles_bwd = recording
+        rasterize_tile.blend_tiles, rasterize_tile.blend_tiles_bwd = recording_fwd, recording
         for name in LAUNCHES:
             LAUNCHES[name] = 0
         t0 = time.perf_counter()
@@ -536,7 +542,7 @@ def phase_train(device, card, work):
         wall = time.perf_counter() - t0
         counts = dict(LAUNCHES)
     finally:
-        rasterize_tile.blend_tiles_bwd = real_bwd
+        rasterize_tile.blend_tiles, rasterize_tile.blend_tiles_bwd = real_fwd, real_bwd
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     print(f"  kernel launches in the training run: {counts} ({TRAIN_STEPS} steps)")
     for name in TRAIN_KERNELS:
@@ -556,8 +562,24 @@ def phase_train(device, card, work):
     if latest_epoch(out) is None:
         _fail("no checkpoint after training")
 
-    # the last step's own batch: H-bwd against the plain version, per pair
-    # and through the scatter into the packed table
+    # the last step's own batch: H-fwd against the plain version, timed
+    fwd_args = tuple(a.detach() if torch.is_tensor(a) else a for a in rec["fwd_args"][:6])
+    fwd_caps = rec["fwd_kw"].get("caps", rec["fwd_args"][6] if len(rec["fwd_args"]) > 6
+                                 else None)
+    fwd_res = _compare(real_fwd(*fwd_args, caps=fwd_caps),
+                       rasterize_tile.blend_tiles_plain(*fwd_args, caps=fwd_caps))
+    _check_blend("train batch, H-fwd", fwd_res)
+    fwd_ms = _time_ms(lambda: real_fwd(*fwd_args, caps=fwd_caps), reps=20)
+    fwd_plain_ms = _time_ms(lambda: rasterize_tile.blend_tiles_plain(*fwd_args, caps=fwd_caps),
+                            reps=3, warmup=1)
+    fwd_bound = _blend_bound(fwd_args, fwd_caps)
+    _print_walk("train batch (H-fwd walk)", fwd_bound)
+    print(f"  train batch: H-fwd {fwd_ms:.4f} ms, plain {fwd_plain_ms:.3f} ms, bound "
+          f"{fwd_bound['bound_ms']:.4f} ms ({fwd_bound['bound_by']}) on {fwd_bound['pairs']} "
+          f"binned pairs; no library call; on {card}")
+
+    # then H-bwd against its plain version, per pair and through the
+    # scatter into the packed table
     args, caps = rec["args"], rec["kw"].get("caps", rec["args"][10] if len(rec["args"]) > 10
                                             else None)
     bwd_args = tuple(a.detach() if torch.is_tensor(a) else a for a in args[:10])
@@ -571,7 +593,8 @@ def phase_train(device, card, work):
     _bwd_compare("train batch, packed table", scatter_pair_grads(out_k, bwd_args[1], n_rows)[:, :9],
                  scatter_pair_grads(out_p, bwd_args[1], n_rows)[:, :9])
     ms, plain_ms, bound = _time_bwd("train batch", bwd_args, caps, card)
-    return {
+    fwd_err = max(fwd_res["color"], fwd_res["T"])
+    return fwd_err, {
         "name": "blend_bwd", "route": "cuda",
         "source": "gaussianavatar_torch/csrc/blend_bwd.cu",
         "replaces": "gaussianavatar_tpu/ops/rasterize_ragged.py:405",
@@ -609,9 +632,10 @@ def main():
     phase_bwd_random_scene(device, card)
     print("phase 5: stage-1 training, canonical widths")
     with tempfile.TemporaryDirectory(dir=REPO) as work:
-        bwd, train_counts = phase_train(device, card, work)
+        train_fwd_err, bwd, train_counts = phase_train(device, card, work)
     # launches: each main path's run, added (the render's H-fwd, then training's)
     fwd["launches"] += train_counts["blend_fwd"]
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], train_fwd_err)
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [fwd, bwd]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

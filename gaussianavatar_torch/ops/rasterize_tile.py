@@ -202,6 +202,22 @@ def _capped_counts(offsets, caps):
     return counts
 
 
+def _deepest_first(lengths: torch.Tensor) -> torch.Tensor:
+    """The kernels' block order: block ids (int32) by walk length, longest
+    first (longest-processing-time first), ties in id order. On the device
+    of `lengths`, with no host read."""
+    return torch.argsort(lengths, descending=True, stable=True).to(torch.int32)
+
+
+def _block_split(ts: int) -> Tuple[int, int]:
+    """The kernels' work split -> (nq, side): a tile of ts x ts pixels is
+    walked by nq x nq blocks, each over a sub-tile of side x side pixels:
+    the four 16 x 16 quadrants of a 32 px tile, or one block for a tile of
+    at most 16 px."""
+    nq = 2 if ts > 16 else 1
+    return nq, _cdiv(ts, nq)
+
+
 def blend_tiles_plain(
     packed: torch.Tensor,        # (B*N, 16) f32
     sorted_vals: torch.Tensor,   # (L,) int32 gaussian ids in (tile, depth) order
@@ -296,6 +312,9 @@ def _check_table(fn, packed, sorted_vals, offsets, caps, ts):
     _check(fn, "packed", packed, torch.float32)
     if packed.dim() != 2 or packed.shape[1] != 16:
         raise ValueError(f"{fn}: packed must be (rows, 16), got {tuple(packed.shape)}")
+    if packed.data_ptr() % 16:
+        # the kernels copy its rows in 16-byte cp.async chunks
+        raise ValueError(f"{fn}: packed must be 16-byte aligned")
     _check(fn, "sorted_vals", sorted_vals, torch.int32)
     _check(fn, "offsets", offsets, torch.int32, (G + 1,))
     if caps is not None:
@@ -313,9 +332,10 @@ def blend_tiles(
     caps: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The tile blend. CUDA tensors launch the H-fwd kernel (built from
-    `csrc/blend_fwd.cu` on first use) on the current stream; CPU tensors, and
-    only they, take `blend_tiles_plain`. Outputs as `blend_tiles_plain`.
-    Each launch adds one to `cuda_build.LAUNCHES["blend_fwd"]`."""
+    `csrc/blend_fwd.cu` on first use) on the current stream: one block per
+    `_block_split` sub-tile, the deepest tiles first; CPU tensors, and only
+    they, take `blend_tiles_plain`. Outputs as `blend_tiles_plain`. Each
+    launch adds one to `cuda_build.LAUNCHES["blend_fwd"]`."""
     if packed.device.type == "cpu":
         return blend_tiles_plain(packed, sorted_vals, offsets, txn, ts, n_tiles, caps)
     from gaussianavatar_torch.utils.cuda_build import LAUNCHES, load_library
@@ -323,17 +343,20 @@ def blend_tiles(
     lib = load_library("blend_fwd")
     G, PX = _check_table("blend_tiles", packed, sorted_vals, offsets, caps, ts)
     dev = packed.device
+    nq, side = _block_split(ts)
+    counts = _capped_counts(offsets, caps).to(torch.int32)
+    # a tile's blocks walk its rows side by side: each is as deep as the tile
+    order = _deepest_first(counts.repeat_interleave(nq * nq))
     color = torch.empty((G, 3, PX), dtype=torch.float32, device=dev)
     T_out = torch.empty((G, PX), dtype=torch.float32, device=dev)
     ncon = torch.empty((G, PX), dtype=torch.int32, device=dev)
     done = torch.empty((G, PX), dtype=torch.float32, device=dev)
     fn = lib.ga_blend_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(packed.data_ptr(), sorted_vals.data_ptr(), offsets.data_ptr(),
-            caps.data_ptr() if caps is not None else None,
-            G, n_tiles, txn, ts,
+            counts.data_ptr(), order.data_ptr(), order.shape[0], nq, side, n_tiles, txn, ts,
             color.data_ptr(), T_out.data_ptr(), ncon.data_ptr(), done.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"blend_fwd kernel launch failed: CUDA error {rc}")
@@ -354,6 +377,26 @@ def _walk_ends(offsets, caps, n_contrib):
     n_contrib). Pairs past it get zero."""
     return torch.minimum(_capped_counts(offsets, caps),
                          n_contrib.amax(dim=1).to(torch.int64))
+
+
+def _pixel_blocks(ts: int, device=None) -> torch.Tensor:
+    """(ts*ts,) int64: the block of its tile (0 .. nq*nq - 1, row-major, as
+    `_block_split` cuts it) that walks each pixel."""
+    nq, side = _block_split(ts)
+    f = torch.arange(ts * ts, device=device)
+    return (f // ts // side) * nq + f % ts // side
+
+
+def _block_walk_ends(offsets, caps, n_contrib, ts):
+    """(G, nq*nq) int64: the rows each H-bwd block walks, min(count, the
+    deepest n_contrib among its pixels). Their max over a tile's blocks is
+    `_walk_ends`; rows of a block past its end carry none of its gradient."""
+    G, PX = n_contrib.shape
+    nq, _ = _block_split(ts)
+    blocks = _pixel_blocks(ts, n_contrib.device).expand(G, PX)
+    deepest = torch.zeros((G, nq * nq), dtype=n_contrib.dtype, device=n_contrib.device)
+    deepest.scatter_reduce_(1, blocks, n_contrib, "amax")
+    return torch.minimum(_capped_counts(offsets, caps)[:, None], deepest.to(torch.int64))
 
 
 def blend_tiles_bwd_plain(
@@ -477,10 +520,12 @@ def blend_tiles_bwd(
 ) -> torch.Tensor:
     """The blend's gradient per (tile, gaussian) pair. CUDA tensors launch
     the H-bwd kernel (built from `csrc/blend_bwd.cu` on first use) on the
-    current stream; CPU tensors, and only they, take
-    `blend_tiles_bwd_plain`. Output as `blend_tiles_bwd_plain`, one row per
-    entry of `sorted_vals`, which must hold at least offsets[-1] entries
-    (the binned prefix is enough). Each launch adds one to
+    current stream: one block per `_block_split` sub-tile, deepest walk
+    first (`_block_walk_ends`, `_deepest_first`); the blocks of a tile add
+    their partial rows in block order in the kernel. CPU tensors, and only
+    they, take `blend_tiles_bwd_plain`. Output as `blend_tiles_bwd_plain`,
+    one row per entry of `sorted_vals`, which must hold at least offsets[-1]
+    entries (the binned prefix is enough). Each launch adds one to
     `cuda_build.LAUNCHES["blend_bwd"]`."""
     if packed.device.type == "cpu":
         return blend_tiles_bwd_plain(packed, sorted_vals, offsets, txn, ts, n_tiles,
@@ -490,22 +535,31 @@ def blend_tiles_bwd(
     lib = load_library("blend_bwd")
     fn_name = "blend_tiles_bwd"
     G, PX = _check_table(fn_name, packed, sorted_vals, offsets, caps, ts)
-    if PX % 32:
-        raise ValueError(f"{fn_name}: ts*ts ({PX}) must be a multiple of 32 (whole warps)")
     _check(fn_name, "finalT", finalT, torch.float32, (G, PX))
     _check(fn_name, "n_contrib", n_contrib, torch.int32, (G, PX))
     _check(fn_name, "grad_color", grad_color, torch.float32, (G, 3, PX))
     _check(fn_name, "grad_T", grad_T, torch.float32, (G, PX))
-    grads = torch.zeros((sorted_vals.shape[0], 9), dtype=torch.float32, device=packed.device)
+    dev = packed.device
+    nq, side = _block_split(ts)
+    ends = _block_walk_ends(offsets, caps, n_contrib, ts).reshape(-1).to(torch.int32)
+    order = _deepest_first(ends)
+    L = sorted_vals.shape[0]
+    grads = torch.zeros((L, 9), dtype=torch.float32, device=dev)
+    # a tile of several blocks: their partial rows, and a ticket per tile so
+    # that the last block to finish adds them
+    split = nq > 1
+    slab = torch.empty((nq * nq, L, 9), dtype=torch.float32, device=dev) if split else None
+    tickets = torch.zeros((G,), dtype=torch.int32, device=dev) if split else None
     fn = lib.ga_blend_bwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 7
+                   + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(packed.device).cuda_stream
+    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(packed.data_ptr(), sorted_vals.data_ptr(), offsets.data_ptr(),
-            caps.data_ptr() if caps is not None else None,
-            G, n_tiles, txn, ts,
+            order.data_ptr(), ends.data_ptr(), ends.shape[0], nq, side, n_tiles, txn, ts,
             finalT.data_ptr(), n_contrib.data_ptr(), grad_color.data_ptr(), grad_T.data_ptr(),
-            grads.data_ptr(), stream)
+            grads.data_ptr(), slab.data_ptr() if split else None,
+            tickets.data_ptr() if split else None, L, stream)
     if rc != 0:
         raise RuntimeError(f"blend_bwd kernel launch failed: CUDA error {rc}")
     LAUNCHES["blend_bwd"] += 1

@@ -60,10 +60,15 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
+    """The library's path, named by a hash of its source, the headers beside
+    it and the flags."""
     src = join(_PKG, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return join(BUILD_DIR, f"{name}_{digest}.so")
+    csrc = dirname(src)
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(join(csrc, n) for n in os.listdir(csrc) if n.endswith(".cuh")):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return join(BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so")
 
 
 def build_all(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, BuildResult]:

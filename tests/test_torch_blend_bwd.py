@@ -217,6 +217,96 @@ def test_bwd_walk_counts_match_row_walk(case):
     assert got["contributing"] > 0 and got["past_last"] > 0 and got["cut_alpha"] > 0
 
 
+def _split_scene(ts, seed=8):
+    """A binned scene at tile size ts (2 views of 2 x 2 tiles), the plain
+    forward's n_contrib, a random cotangent and random caps (some 0)."""
+    rng = np.random.default_rng(seed)
+    h = w = 2 * ts
+    n = 400
+    sig = rng.uniform(1.0, 4.0, (B, n))
+    projs = TProj(
+        means2d=torch.tensor(np.stack([rng.uniform(0, w, (B, n)), rng.uniform(0, h, (B, n))], -1),
+                             dtype=torch.float32),
+        depths=torch.tensor(rng.uniform(0.5, 3.0, (B, n)), dtype=torch.float32),
+        conics=torch.tensor(np.stack([1 / sig**2, np.zeros((B, n)), 1 / sig**2], -1),
+                            dtype=torch.float32),
+        radii=torch.tensor(np.ceil(3 * sig), dtype=torch.float32))
+    ctx = tt._bin_gaussians(projs, torch.tensor(rng.uniform(size=(B, n, 3)), dtype=torch.float32),
+                            torch.tensor(rng.uniform(0.2, 1.0, (B, n)), dtype=torch.float32),
+                            h, w, ts, 2, 2)
+    g, px = ctx.full_counts.shape[0], ts * ts
+    caps = torch.tensor((rng.uniform(0, 1.2, g) * ctx.full_counts.numpy()).astype(np.int32))
+    caps[::3] = 0
+    args = (ctx.packed, ctx.sorted_vals, ctx.offsets, 2, ts, 4)
+    cot = (torch.tensor(rng.normal(size=(g, 3, px)), dtype=torch.float32),
+           torch.tensor(rng.normal(size=(g, px)), dtype=torch.float32))
+    return args, caps, cot
+
+
+@pytest.mark.parametrize("ts", [16, 24, 32])
+def test_block_walk_ends_match_walk_ends(ts):
+    """H-bwd's work split: every pixel of a tile belongs to one block (16 x
+    16 quadrants above 16 px), each block's walk end is min(count, its
+    pixels' deepest n_contrib), and the deepest block's end is the tile's
+    `_walk_ends`."""
+    args, caps, _ = _split_scene(ts)
+    nq, side = tt._block_split(ts)
+    assert (nq, side) == ((1, ts) if ts <= 16 else (2, ts // 2))
+    blocks = tt._pixel_blocks(ts)
+    f = np.arange(ts * ts)
+    want_blocks = (f // ts // side) * nq + (f % ts) // side
+    np.testing.assert_array_equal(blocks.numpy(), want_blocks)
+    assert np.bincount(want_blocks).tolist() == [side * side] * nq * nq
+    for c in (None, caps):
+        ncon = tt.blend_tiles_plain(*args, caps=c)[2]
+        ends = tt._block_walk_ends(args[2], c, ncon, ts)
+        counts = tt._capped_counts(args[2], c)
+        for q in range(nq * nq):
+            deepest = ncon[:, blocks == q].amax(1).long()
+            assert torch.equal(ends[:, q], torch.minimum(counts, deepest))
+        assert torch.equal(ends.amax(1), tt._walk_ends(args[2], c, ncon))
+        assert int(ends.amax()) > 0
+    assert int(ends.amin()) == 0  # the caps of 0
+
+
+@pytest.mark.parametrize("ts", [16, 32])
+def test_block_partials_add_up_to_plain_bwd(ts):
+    """What each H-bwd block computes: the plain gradient over its own
+    pixels, zero past its walk end; the blocks' partial rows added in block
+    order, as the last block of a tile adds them, are the whole tile's plain
+    gradient (the sums over pixels reassociated: 1e-5 x each channel's
+    largest |gradient|)."""
+    args, caps, (g_color, g_T) = _split_scene(ts)
+    nq, _ = tt._block_split(ts)
+    blocks = tt._pixel_blocks(ts)
+    offsets = args[2].long()
+    n = int(offsets[-1])
+    tile = torch.repeat_interleave(torch.arange(offsets.shape[0] - 1), offsets.diff())
+    rank = torch.arange(n) - offsets[tile]  # a binned pair's rank within its tile
+    for c in (None, caps):
+        _, T, ncon, _ = tt.blend_tiles_plain(*args, caps=c)
+        whole = tt.blend_tiles_bwd_plain(*args, T, ncon, g_color, g_T, caps=c)
+        ends = tt._block_walk_ends(args[2], c, ncon, ts)
+        combined = torch.zeros_like(whole)
+        for q in range(nq * nq):
+            own = torch.where(blocks == q, ncon, torch.zeros_like(ncon))
+            part = tt.blend_tiles_bwd_plain(*args, T, own, g_color, g_T, caps=c)
+            # rows at or past the block's walk end carry none of its gradient
+            assert not part[n:].any()
+            assert not part[:n][rank >= ends[tile, q]].any()
+            combined += part
+        _assert_pairs_close(combined.numpy(), whole.numpy())
+
+
+def test_deepest_first_orders_blocks_by_walk_length():
+    """The kernels' block order: a permutation, walk lengths non-increasing
+    along it, ties in block order."""
+    lengths = torch.tensor([3, 0, 7, 3, 7, 1, 0, 3])
+    order = tt._deepest_first(lengths)
+    assert order.dtype == torch.int32
+    assert order.tolist() == [2, 4, 0, 3, 7, 5, 1, 6]
+
+
 def test_blend_gradient_matches_jax_grad():
     """BlendTiles (plain forward and backward, index_add_ scatter, the
     packed table's concatenation) against jax.grad through the JAX tile

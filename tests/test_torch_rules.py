@@ -250,6 +250,73 @@ def test_blend_bwd_kernel_matches_plain_on_card(cuda_device, opaque):
         assert bool(((k1 - p).abs().amax(0) <= 1e-5 * scale).all()), ((k1 - p).abs().amax(0), scale)
 
 
+def _deep_tile_inputs(device, ts, opaque):
+    """Two views of 4 x 4 tiles of ts px: 2000 gaussians per view over the
+    first 2.5 tile columns (the last column stays empty), and on tile (1, 1)
+    of view 0 a cluster of 1500 faint ones (opacity 0.01-0.04) that makes it
+    ~1,900 rows deep among tiles of ~300; opaque: opacity 1 outside the
+    cluster. Returns the blend's arguments, random caps (every third 0), a
+    random cotangent and the per-tile counts."""
+    from gaussianavatar_torch.ops.projection import ProjectedGaussians
+
+    g = torch.Generator().manual_seed(3)
+    B, H, W, n, n_deep = 2, 4 * ts, 4 * ts, 2000, 1500
+    u = lambda *s: torch.rand(s, generator=g)
+    mx = torch.cat([u(B, n) * 2.5 * ts, ts + 4 + u(B, n_deep) * (ts - 8)], 1)
+    my = torch.cat([u(B, n) * H, ts + 4 + u(B, n_deep) * (ts - 8)], 1)
+    sig = torch.cat([1.0 + 3.0 * u(B, n), 1.0 + 2.0 * u(B, n_deep)], 1)
+    deep_op = torch.where(torch.arange(B)[:, None] == 0, 0.01 + 0.03 * u(B, n_deep),
+                          torch.zeros(B, n_deep))
+    op = torch.cat([torch.ones(B, n) if opaque else 0.3 + 0.7 * u(B, n), deep_op], 1)
+    projs = ProjectedGaussians(
+        means2d=torch.stack([mx, my], -1), depths=0.5 + u(B, n + n_deep),
+        conics=torch.stack([1 / sig**2, torch.zeros_like(sig), 1 / sig**2], -1),
+        radii=torch.ceil(3 * sig))
+    projs = ProjectedGaussians(*(x.to(device) for x in projs))
+    ctx = tt._bin_gaussians(projs, u(B, n + n_deep, 3).to(device), op.to(device), H, W, ts, 2, 2)
+    txn = W // ts
+    args = (ctx.packed, ctx.sorted_vals, ctx.offsets, txn, ts, txn * (H // ts))
+    G = ctx.full_counts.shape[0]
+    caps = (u(G) * 1.2 * ctx.full_counts.cpu()).int()
+    caps[::3] = 0
+    cot = (u(G, 3, ts * ts).to(device) - 0.5, u(G, ts * ts).to(device) - 0.5)
+    return args, caps.to(device), cot, ctx.full_counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ts,opaque", [(32, False), (32, True), (24, False)],
+                         ids=["ts32-mixed", "ts32-opaque", "ts24-mixed"])
+def test_blend_kernels_match_plain_deep_tile_on_card(cuda_device, ts, opaque):
+    """Both kernels at the canonical 32 px tile (and at 24, whose 12 x 12
+    quadrants fill no whole warp) on a scene made for their work split and
+    block order: one tile deeper than many 64-row H-fwd batches and 32-row
+    H-bwd batches, a multiple of neither, among shallow ones; empty
+    tiles; caps, some of them 0; opaque: opacity 1, so the 0.99 clamp
+    bites. H-fwd: colour 2e-5, T 1e-6, n_contrib and done exact. H-bwd,
+    on H-fwd's outputs: per pair and channel within 1e-5 of the channel's
+    largest |gradient|, and two runs bit-identical."""
+    args, caps, (g_color, g_T), counts = _deep_tile_inputs(cuda_device, ts, opaque)
+    deepest = int(counts.max())
+    assert deepest > 6 * 256 and deepest % 32 and int((counts == 0).sum()) > 0
+    assert bool((caps == 0).any())
+    for c in (None, caps):
+        ck, tk, nk, dk = tt.blend_tiles(*args, caps=c)
+        cp, tp, np_, dp = tt.blend_tiles_plain(*args, caps=c)
+        torch.testing.assert_close(ck, cp, atol=2e-5, rtol=0)
+        torch.testing.assert_close(tk, tp, atol=1e-6, rtol=0)
+        assert torch.equal(nk, np_) and torch.equal(dk, dp)
+        if c is None:  # the deep tile's walk goes past 24 H-fwd batches
+            assert int(nk.max()) > 6 * 256
+        k1 = tt.blend_tiles_bwd(*args, tk, nk, g_color, g_T, caps=c)
+        k2 = tt.blend_tiles_bwd(*args, tk, nk, g_color, g_T, caps=c)
+        p = tt.blend_tiles_bwd_plain(*args, tk, nk, g_color, g_T, caps=c)
+        assert torch.equal(k1, k2)
+        assert bool(torch.isfinite(k1).all())
+        scale = p.abs().amax(0)
+        assert bool((scale > 0).all())
+        assert bool(((k1 - p).abs().amax(0) <= 1e-5 * scale).all()), ((k1 - p).abs().amax(0), scale)
+
+
 @pytest.mark.gpu
 def test_blend_bwd_kernel_rules_on_card(cuda_device):
     """H-bwd builds, counts one launch per call, and refuses CPU tensors,
@@ -267,4 +334,12 @@ def test_blend_bwd_kernel_rules_on_card(cuda_device):
     for name, rest in bad.items():
         with pytest.raises(ValueError):
             tt.blend_tiles_bwd(*args, *rest)
+    # the kernels copy packed rows in 16-byte chunks
+    packed = args[0]
+    shifted = torch.empty(packed.numel() + 1, device=cuda_device)[1:].view_as(packed)
+    shifted.copy_(packed)
+    with pytest.raises(ValueError, match="aligned"):
+        tt.blend_tiles_bwd(shifted, *args[1:], T, ncon, g_color, g_T)
+    with pytest.raises(ValueError, match="aligned"):
+        tt.blend_tiles(shifted, *args[1:])
     assert cuda_build.LAUNCHES["blend_bwd"] == before + 1
