@@ -23,7 +23,15 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      gaussianavatar_torch.train` (its `main`) takes 30 steps, with both
      kernels' launch counts read around it; then H-fwd and H-bwd against
      their plain versions on the last step's own batch, each timed beside
-     its bound.
+     its bound;
+  6. on phase 5's output, the rest of the stage-1 path through the users'
+     entry points, each with the launch counts read around it: training
+     resumed with `--checkpoint_epochs 8` to epoch 10 (8 steps: the
+     iteration and the optimizer's counts go on from 30, the loss stays
+     near where it was, both kernels launch once per step), `python -m
+     gaussianavatar_torch.eval` on the 4 test frames (finite PSNR / SSIM,
+     one H-fwd launch per 4 frames, frames/s), and `python -m
+     gaussianavatar_torch.render_novel_view` (4 orbit frames).
 It prints one JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {...}}. It needs CUDA and the repository around it.
 """
@@ -500,6 +508,90 @@ def phase_bwd_random_scene(device, card):
         _time_bwd(f"random scene, {label}", bwd_args, c, card)
 
 
+def _train_argv(data, out):
+    return ["-s", data, "-m", out, "--train_stage", "1", "--dataset_type", "synthetic",
+            "--pose_op_start_iter", "0", "--no_lpips"]
+
+
+def _run_counted(fn, *args):
+    """fn(*args) with every kernel's launch count set to 0 just before and
+    read just after (the device synchronised) -> (result, counts, wall s)."""
+    import torch
+
+    from gaussianavatar_torch.utils.cuda_build import LAUNCHES
+
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    result = fn(*args)
+    torch.cuda.synchronize()
+    return result, dict(LAUNCHES), time.perf_counter() - t0
+
+
+def phase_rest_of_path(card, work):
+    """Resume, eval and novel view on phase 5's output, through the CLIs."""
+    import torch
+
+    from gaussianavatar_torch import eval as eval_cli, render_novel_view, train as train_cli
+    from gaussianavatar_torch.engine import checkpoint as ckpt
+
+    data, out = os.path.join(work, "data"), os.path.join(work, "out")
+    metrics = os.path.join(out, "metrics.jsonl")
+    before = [json.loads(line) for line in open(metrics) if '"step"' in line]
+    saved = torch.load(os.path.join(ckpt.ckpt_dir(out, 8), ckpt.TRAIN_NAME), weights_only=True)
+    print(f"  iteration_8 holds iteration {saved['iteration']}, optimizer counts "
+          f"net {saved['optimizer']['net']['count']}, geo {saved['optimizer']['geo']['count']}, "
+          f"embed {int(saved['optimizer']['embed']['step_count'])}")
+    if saved["iteration"] != TRAIN_STEPS or saved["optimizer"]["net"]["count"] != TRAIN_STEPS:
+        _fail("phase 5's checkpoint does not hold its iteration and optimizer count")
+
+    # resume: epochs 9 and 10, 4 steps each
+    resumed_steps = 2 * 4
+    _, resume_counts, wall = _run_counted(
+        train_cli.main, _train_argv(data, out) + ["--checkpoint_epochs", "8", "--epochs", "10"])
+    print(f"  kernel launches in the resumed run: {resume_counts} ({resumed_steps} steps, "
+          f"{wall:.1f} s in all)")
+    for name in TRAIN_KERNELS:
+        if resume_counts[name] != resumed_steps:
+            _fail(f"the resumed run launched {name} {resume_counts[name]} times, not once per "
+                  "step")
+    after = [json.loads(line) for line in open(metrics) if '"step"' in line][len(before):]
+    end = torch.load(os.path.join(ckpt.ckpt_dir(out, 10), ckpt.TRAIN_NAME), weights_only=True)
+    last, first = before[-1], after[0]
+    print(f"  resumed: first logged step {first['step']} (loss {first['total']:.5f}, w_rgl "
+          f"{first['w_rgl']:g}) after step {last['step']} (loss {last['total']:.5f}); "
+          f"iteration_10 holds iteration {end['iteration']}, net count "
+          f"{end['optimizer']['net']['count']}")
+    if first["step"] != TRAIN_STEPS + 1 or end["iteration"] != TRAIN_STEPS + resumed_steps \
+            or end["optimizer"]["net"]["count"] != TRAIN_STEPS + resumed_steps:
+        _fail("the resumed run did not go on from the restored iteration and counts")
+    if not all(math.isfinite(r["total"]) for r in after) \
+            or not 0.5 <= first["total"] / last["total"] <= 2.0:
+        _fail("the resumed loss is not finite or not within 2x of the loss before")
+
+    result, counts, wall = _run_counted(eval_cli.main, ["-m", out])
+    n_batches = -(-result["frames"] // eval_cli.EVAL_B)
+    print(f"  eval: {result['frames']} test frames of 512x512, PSNR {result['psnr']:.3f} "
+          f"SSIM {result['ssim']:.5f}, overflow {result['raster_overflow']} pairs, "
+          f"{result['frames'] / result['render_s']:.2f} frames/s in the render calls "
+          f"({wall:.1f} s in all, setup included), launches {counts}, on {card}")
+    lines = open(os.path.join(out, "test_free", "results.txt")).read()
+    if not all(math.isfinite(result[k]) for k in ("psnr", "ssim")) \
+            or "psnr:" not in lines or "ssim:" not in lines:
+        _fail("eval wrote no finite PSNR / SSIM")
+    if counts["blend_fwd"] != n_batches:
+        _fail(f"eval launched H-fwd {counts['blend_fwd']} times for {n_batches} batches")
+    eval_counts = counts
+
+    _, counts, wall = _run_counted(render_novel_view.main, ["-m", out, "--frames", "4"])
+    pngs = sorted(os.listdir(os.path.join(out, "novel_view", "pose_0")))
+    print(f"  novel view: {pngs} in {wall:.1f} s, launches {counts}")
+    if pngs != [f"{i:05d}.png" for i in range(4)] or counts["blend_fwd"] < 1:
+        _fail("the novel-view render did not write 4 frames through H-fwd")
+    # launches over the three runs
+    return {name: resume_counts[name] + eval_counts[name] + counts[name] for name in counts}
+
+
 def phase_train(device, card, work):
     """Stage-1 training at the canonical widths through the port's CLI."""
     import torch
@@ -513,8 +605,8 @@ def phase_train(device, card, work):
 
     data, out = os.path.join(work, "data"), os.path.join(work, "out")
     t0 = time.perf_counter()
-    write_synthetic_dataset(data, n_train=8, n_test=1, image_size=512, device=device)
-    print(f"  wrote 8 training frames of 512x512 with the port's writer in "
+    write_synthetic_dataset(data, n_train=8, n_test=4, image_size=512, device=device)
+    print(f"  wrote 8 training and 4 test frames of 512x512 with the port's writer in "
           f"{time.perf_counter() - t0:.1f} s")
 
     real_fwd, real_bwd = rasterize_tile.blend_tiles, rasterize_tile.blend_tiles_bwd
@@ -529,8 +621,7 @@ def phase_train(device, card, work):
         rec["args"], rec["kw"] = a, kw
         return real_bwd(*a, **kw)
 
-    argv = ["-s", data, "-m", out, "--train_stage", "1", "--dataset_type", "synthetic",
-            "--max_steps", str(TRAIN_STEPS), "--pose_op_start_iter", "0", "--no_lpips"]
+    argv = _train_argv(data, out) + ["--max_steps", str(TRAIN_STEPS)]
     torch.cuda.reset_peak_memory_stats()
     try:
         rasterize_tile.blend_tiles, rasterize_tile.blend_tiles_bwd = recording_fwd, recording
@@ -633,8 +724,12 @@ def main():
     print("phase 5: stage-1 training, canonical widths")
     with tempfile.TemporaryDirectory(dir=REPO) as work:
         train_fwd_err, bwd, train_counts = phase_train(device, card, work)
-    # launches: each main path's run, added (the render's H-fwd, then training's)
-    fwd["launches"] += train_counts["blend_fwd"]
+        print("phase 6: resume, eval and novel view on phase 5's output")
+        rest_counts = phase_rest_of_path(card, work)
+    # launches: each main path's run, added (the render's H-fwd, training's,
+    # then the resumed run's, eval's and the novel view's)
+    fwd["launches"] += train_counts["blend_fwd"] + rest_counts["blend_fwd"]
+    bwd["launches"] += rest_counts["blend_bwd"]
     fwd["max_abs_err"] = max(fwd["max_abs_err"], train_fwd_err)
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [fwd, bwd]}))

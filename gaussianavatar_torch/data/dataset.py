@@ -12,7 +12,11 @@ as far as stage-1 training and rendering need it:
     where its mask is below 128, decoded once (PIL, imported where a frame
     is decoded) and cached as uint8; `frame_u8` feeds the train loop's
     device-resident GT bank.
+  - `MonoDatasetTest`: the held-out split for eval: per item the image as
+    float32 in [0, 1] (the same decode), the frame's pose and translation.
   - `MonoDatasetNovelPose`: poses from an external folder, a fixed camera.
+  - `MonoDatasetNovelView`: the camera orbiting one pose of the test split
+    (`_rotate_extrinsics`).
   - `collate` and `BatchLoader` (shuffled, drop-last batches).
 
 Items are dicts of numpy arrays, keyed like the JAX package's, with tan-fov
@@ -91,14 +95,14 @@ class FrameTable:
         return self.data_length
 
 
-class MonoDatasetTrain(FrameTable):
-    """Training frames of `source_path/train`: per item the frame index, the
-    camera and the smplx rest pose where the body is smplx. The images are
-    read through `frame_u8` (the train loop's GT bank), not per item."""
+class _MonoSplit(FrameTable):
+    """The frames of `source_path/<split>`: names, cameras, the decode."""
+
+    split = "train"
 
     def __init__(self, model_parms):
-        super().__init__(model_parms, "train")
-        self.data_folder = join(model_parms.source_path, "train")
+        super().__init__(model_parms, self.split)
+        self.data_folder = join(model_parms.source_path, self.split)
         names = sorted(os.listdir(join(self.data_folder, "images")))
         self.name_list = [(i, n.split(".")[0]) for i, n in enumerate(names)]
         self.image_fix = names[0].split(".")[-1]
@@ -158,10 +162,39 @@ class MonoDatasetTrain(FrameTable):
         from then on)."""
         self._frames.clear()
 
+
+class MonoDatasetTrain(_MonoSplit):
+    """Training frames: per item the frame index, the camera and the smplx
+    rest pose where the body is smplx. The images are read through
+    `frame_u8` (the train loop's GT bank), not per item."""
+
     def __getitem__(self, index) -> Dict[str, np.ndarray]:
         pose_idx, name = self.name_list[index]
         R, T, intrinsic = self._load_cam(name)
         item = {"pose_idx": np.int32(pose_idx)}
+        item.update(_camera_item(R, T, intrinsic, *self.image_hw()))
+        if self.smpl_type == "smplx":
+            item["rest_pose"] = self.rest_pose_data[pose_idx]
+        return item
+
+
+class MonoDatasetTest(_MonoSplit):
+    """Held-out frames of `source_path/test` for eval: per item
+    `original_image` (3, H, W) float32 in [0, 1], composited onto white by
+    the mask, and the frame's `pose_data` and `transl_data` (the render
+    poses the body from them, not from the trained embeddings)."""
+
+    split = "test"
+
+    def __getitem__(self, index) -> Dict[str, np.ndarray]:
+        pose_idx, name = self.name_list[index]
+        R, T, intrinsic = self._load_cam(name)
+        item = {
+            "original_image": self.frame_u8(index).astype(np.float32) / 255.0,
+            "pose_idx": np.int32(pose_idx),
+            "pose_data": self.pose_data[pose_idx],
+            "transl_data": self.transl_data[pose_idx],
+        }
         item.update(_camera_item(R, T, intrinsic, *self.image_hw()))
         if self.smpl_type == "smplx":
             item["rest_pose"] = self.rest_pose_data[pose_idx]
@@ -225,4 +258,79 @@ class MonoDatasetNovelPose:
         item.update(_camera_item(self.R, self.T, self.intrinsic, self.height, self.width))
         if self.smpl_type == "smplx":
             item["rest_pose"] = self.rest_pose_data[index]
+        return item
+
+
+def _rodrigues(rotvec: np.ndarray) -> np.ndarray:
+    """Axis-angle -> 3x3 rotation matrix, in float64."""
+    theta = float(np.linalg.norm(rotvec))
+    if theta == 0.0:
+        return np.eye(3)
+    k = np.asarray(rotvec, np.float64) / theta
+    K = np.array([[0.0, -k[2], k[1]], [k[2], 0.0, -k[0]], [-k[1], k[0], 0.0]])
+    return np.eye(3) + np.sin(theta) * K + (1.0 - np.cos(theta)) * (K @ K)
+
+
+def _rotate_extrinsics(extrinsic, angle, trans=None, rotate_axis="y"):
+    """The orbit camera's extrinsic: the camera of `extrinsic` turned by
+    `angle` about `rotate_axis` through `trans` (HumanNeRF's convention, as
+    the JAX package's `_rotate_extrinsics`)."""
+    E = np.asarray(extrinsic, np.float64)
+    inv_E = np.linalg.inv(E)
+    camrot = inv_E[:3, :3]
+    campos = inv_E[:3, 3]
+    if trans is not None:
+        campos = campos - trans
+    if camrot.T[1, 1] < 0:
+        angle = -angle
+    vec = np.zeros(3)
+    vec[{"x": 0, "y": 1, "z": 2}[rotate_axis]] = angle
+    gm = _rodrigues(vec)
+    rot_campos = gm @ campos
+    rot_camrot = gm @ camrot
+    if trans is not None:
+        rot_campos = rot_campos + trans
+    new_E = np.eye(4)
+    new_E[:3, :3] = rot_camrot.T
+    new_E[:3, 3] = -rot_camrot.T @ rot_campos
+    return new_E
+
+
+class MonoDatasetNovelView(_MonoSplit):
+    """The camera of `source_path/test` orbiting one fixed pose of that
+    split about the vertical axis ("wild" captures: the JAX package's
+    default), `data_length` frames per turn, at the split's image size."""
+
+    split = "test"
+
+    def __init__(self, model_parms):
+        super().__init__(model_parms)
+        with np.load(join(self.data_folder, "cam_parms.npz")) as cam:
+            self.extr_npy = np.asarray(cam["extrinsic"], np.float64)
+            self.intrinsic = np.asarray(cam["intrinsic"], np.float32).reshape(3, 3)
+        self.fix_pose_idx = 0
+        self.Th = np.zeros(3)
+
+    def set_fixed_pose(self, pose_idx: int, frame_num: int, pelvis_pos=None):
+        """Orbit pose `pose_idx` in `frame_num` frames about pelvis +
+        the frame's translation (`pelvis_pos` from the body model)."""
+        self.fix_pose_idx = pose_idx
+        self.data_length = frame_num
+        pp = np.zeros(3) if pelvis_pos is None else np.asarray(pelvis_pos)
+        self.Th = pp + self.transl_data[pose_idx]
+
+    def __getitem__(self, index) -> Dict[str, np.ndarray]:
+        pose_idx = self.fix_pose_idx
+        angle = 2 * np.pi * (index / self.data_length)
+        E = _rotate_extrinsics(self.extr_npy, angle, self.Th, "y")
+        R = np.asarray(E[:3, :3], np.float32).reshape(3, 3).transpose(1, 0)
+        T = np.asarray(E[:3, 3], np.float32)
+        item = {
+            "pose_idx": np.int32(pose_idx),
+            "pose_data": self.pose_data[pose_idx],
+            "transl_data": self.transl_data[pose_idx],
+        }
+        item.update(_camera_item(R, T, self.intrinsic, *self.image_hw()))
+        if self.smpl_type == "smplx":
+            item["rest_pose"] = self.rest_pose_data[pose_idx]
         return item

@@ -1,17 +1,17 @@
 """The stage-1 training loop (counterpart of gaussianavatar_tpu/engine/
 loop.py, lean): epochs over shuffled drop-last batches, the regulariser
 decay (x0.85 every 20 epochs), the pose-optimization and LPIPS epoch gates,
-the loss and it/s log every 10 steps (stdout and metrics.jsonl), and
-checkpoints (`net/iteration_N/net_torch.pt`) at the save epochs and at the
-end, which the port's render_novel_pose reads.
+the loss and it/s log at the first step of a run and every 10 steps
+(stdout and metrics.jsonl), checkpoints (`net/iteration_N/net_torch.pt`
+and `train_torch.pt`) at the save epochs and at the end, and resuming from
+one (`checkpoint_epochs`) with the JAX loop's semantics.
 
 Left out, because the port does not need them: the TPU capacity machinery
 (need tables and their retunes, chunk budgets, cascade tiers, footprint
 adaptation; the port's blend walks every tile's whole range),
 `steps_per_dispatch` scans and `device_prefetch` (dispatch-latency work for
-the TPU's host link), and `--dp`. Left for later slices: stage 2, resume
-from `--checkpoint_epochs`, LPIPS and AIAP, and the periodic PNG/PLY debug
-dumps.
+the TPU's host link), and `--dp`. Left for later slices: stage 2, LPIPS and
+AIAP, and the periodic PNG/PLY debug dumps.
 """
 
 from __future__ import annotations
@@ -65,10 +65,18 @@ def train(
     device: str = "cuda",
     max_steps: Optional[int] = None,
     lpips_note: Optional[str] = None,
+    checkpoint_epochs: Sequence[int] = (),
 ) -> TrainState:
     """Train a stage-1 avatar from `cfg.model.source_path` into
-    `cfg.model.model_path`; stops after `max_steps` optimizer steps if
-    given. Returns the final state."""
+    `cfg.model.model_path`; stops once the iteration reaches `max_steps` if
+    given. Returns the final state.
+
+    With `checkpoint_epochs` [E, ...] the run resumes from
+    `model_path/net/iteration_E` (network, optimizer counts and moments,
+    iteration) at epoch E + 1, as the JAX loop does: the regulariser decay
+    counts from E (the JAX loop's `adjust_loss_weights(..., epoch_start)`),
+    the shuffle starts again from its seed, and the learning-rate schedule
+    and the optimizer's counts go on from the restored ones."""
     require_device(device)
     mp, opt = cfg.model, cfg.opt
     if mp.train_stage != 1:
@@ -95,6 +103,12 @@ def train(
 
         net.train()
         state = TrainState(net, build_optimizer(net, opt, steps_per_epoch, mp.train_stage))
+        epoch_start = 0
+        if checkpoint_epochs:
+            epoch_start = int(checkpoint_epochs[0])
+            ckpt.load_train_state(mp.model_path, epoch_start, state)
+            print(f"resumed from epoch {epoch_start} at iteration {state.iteration}")
+        first_it = state.iteration + 1
         step = make_train_step(net, bundle.body_model, bundle.assets, opt, H, W, bg,
                                raster_config(cfg, train=True), gt_bank,
                                train_stage=mp.train_stage, use_aiap=bool(opt.use_aiap))
@@ -102,38 +116,39 @@ def train(
         ema_loss = 0.0
         t_start = time.time()
         done = False
-        epoch = 0
-        for epoch in range(1, opt.epochs + 1):
-            w_rgl = adjust_loss_weights(opt.lambda_rgl, epoch, "decay", 0, 20)
+        epoch = epoch_start
+        for epoch in range(epoch_start + 1, opt.epochs + 1):
+            w_rgl = adjust_loss_weights(opt.lambda_rgl, epoch, "decay", epoch_start, 20)
             pose_gate = pose_opt_gate_value(mp.train_stage, epoch, opt)
             lpips_gate = lpips_gate_value(False, epoch, opt)
             for batch in loader:
                 feed = {k: v for k, v in batch.items() if k not in _DROP_KEYS}
                 terms, _ = step(state, feed, w_rgl, pose_gate, lpips_gate)
                 it = state.iteration
-                if it == 1:
-                    # it/s leaves out the first step (kernel builds, allocator warm-up)
+                if it == first_it:
+                    # it/s leaves out the run's first step (kernel builds,
+                    # allocator warm-up)
                     if terms["total"].is_cuda:
                         torch.cuda.synchronize()
                     t_start = time.time()
-                if it % 10 == 0 or it == 1:
+                if it % 10 == 0 or it == first_it:
                     loss = float(terms["total"])
                     ema_loss = 0.4 * loss + 0.6 * ema_loss if ema_loss else loss
                     dt = time.time() - t_start
-                    rate = f" ({(it - 1) / dt:.2f} it/s)" if it > 1 else ""
+                    rate = f" ({(it - first_it) / dt:.2f} it/s)" if it > first_it else ""
                     print(f"iter {it} epoch {epoch} loss {ema_loss:.5f}{rate}")
                     logger.log(it, {**{k: float(v) for k, v in terms.items()},
-                                    "iter_time": dt / max(it, 1)})
+                                    "iter_time": dt / (it - first_it + 1), "w_rgl": w_rgl})
                 if max_steps is not None and it >= max_steps:
                     done = True
                     break
             if epoch > saving_epochs[0] and epoch % mp.save_epoch == 0:
                 print(f"[Epoch {epoch}] saving model")
-                ckpt.save_checkpoint(mp.model_path, epoch, net)
+                ckpt.save_train_state(mp.model_path, epoch, state)
             if done:
                 break
 
-        ckpt.save_checkpoint(mp.model_path, min(epoch, opt.epochs), net)
+        ckpt.save_train_state(mp.model_path, min(epoch, opt.epochs), state)
         return state
     finally:
         logger.close()

@@ -19,12 +19,15 @@ optax / JAX expression in the same order:
     Adam at lr_geomfeat (5e-4), embeddings SparseAdam at lr_pose (5e-3).
 
 Moments and counts stay on the parameters' device; nothing here waits for
-the device.
+the device. Each optimizer's `state_dict()` holds its update count and its
+moments keyed by the parameters' names in the network's `state_dict`, so a
+checkpoint resumes training where it stopped (engine/checkpoint.py) and
+bridge.py maps the moments to and from the optax state.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Sequence
+from typing import Callable, Dict, Sequence
 
 import numpy as np
 import torch
@@ -46,15 +49,41 @@ def multistep_schedule(base_lr: float, milestones: Sequence[int],
     return fn
 
 
-class Adam:
-    """optax.adam(learning_rate=lr_fn) over one group of parameters."""
+class _Moments:
+    """First and second moments of named parameters, zero at the start."""
 
-    def __init__(self, params: Iterable[nn.Parameter], lr_fn: Callable[[int], float]):
-        self.params = list(params)
-        self.lr_fn = lr_fn
-        self.count = 0
+    def __init__(self, params: Dict[str, nn.Parameter]):
+        self.names = list(params)
+        self.params = list(params.values())
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
+
+    def _moments_state(self) -> dict:
+        return {"mu": dict(zip(self.names, self.mu)), "nu": dict(zip(self.names, self.nu))}
+
+    @torch.no_grad()
+    def _load_moments(self, state: dict):
+        for key in ("mu", "nu"):
+            if set(state[key]) != set(self.names):
+                raise KeyError(f"{key} names {sorted(state[key])} != the group's {self.names}")
+            for name, dst in zip(self.names, getattr(self, key)):
+                dst.copy_(torch.as_tensor(state[key][name]))
+
+
+class Adam(_Moments):
+    """optax.adam(learning_rate=lr_fn) over one group of named parameters."""
+
+    def __init__(self, params: Dict[str, nn.Parameter], lr_fn: Callable[[int], float]):
+        super().__init__(params)
+        self.lr_fn = lr_fn
+        self.count = 0
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, **self._moments_state()}
+
+    def load_state_dict(self, state: dict):
+        self._load_moments(state)
+        self.count = int(state["count"])
 
     @torch.no_grad()
     def step(self):
@@ -72,16 +101,22 @@ class Adam:
             p.add_(step_size * ((mu / bc1) / (torch.sqrt(nu / bc2) + EPS)))
 
 
-class SparseAdam:
+class SparseAdam(_Moments):
     """The JAX package's sparse_adam (constant rate) over embedding tables
     whose gradients are dense with zero rows."""
 
-    def __init__(self, params: Iterable[nn.Parameter], lr: float):
-        self.params = list(params)
+    def __init__(self, params: Dict[str, nn.Parameter], lr: float):
+        super().__init__(params)
         self.lr = lr
         self.step_count = torch.zeros((), dtype=torch.int32, device=self.params[0].device)
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    def state_dict(self) -> dict:
+        return {"step_count": self.step_count, **self._moments_state()}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict):
+        self._load_moments(state)
+        self.step_count.copy_(torch.as_tensor(state["step_count"]))
 
     @torch.no_grad()
     def step(self):
@@ -114,6 +149,17 @@ class GroupOptimizer:
             for p in opt.params:
                 p.grad = None
 
+    def state_dict(self) -> dict:
+        """{group: that optimizer's state_dict}; the tensors are the live
+        moments, not copies."""
+        return {name: opt.state_dict() for name, opt in self.groups.items()}
+
+    def load_state_dict(self, state: dict):
+        if set(state) != set(self.groups):
+            raise KeyError(f"optimizer groups {sorted(state)} != {sorted(self.groups)}")
+        for name, opt in self.groups.items():
+            opt.load_state_dict(state[name])
+
 
 def param_group(name: str) -> str:
     """Optimizer group of an AvatarNet parameter name."""
@@ -132,9 +178,9 @@ def build_optimizer(net: nn.Module, opt_cfg, steps_per_epoch: int,
                                   "is a later slice of the port)")
     unit = getattr(opt_cfg, "sched_unit", "iteration")
     ms = [int(m) * (steps_per_epoch if unit == "epoch" else 1) for m in opt_cfg.sched_milestones]
-    named = {"net": [], "geo": [], "embed": []}
+    named = {"net": {}, "geo": {}, "embed": {}}
     for name, p in net.named_parameters():
-        named[param_group(name)].append(p)
+        named[param_group(name)][name] = p
     return GroupOptimizer({
         "net": Adam(named["net"], multistep_schedule(opt_cfg.lr_net, ms)),
         "geo": Adam(named["geo"], multistep_schedule(opt_cfg.lr_geomfeat, ms)),

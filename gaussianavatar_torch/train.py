@@ -3,11 +3,14 @@ train.py (the port's `build_parser`, so `cfg_args.json` is the same):
 
     python -m gaussianavatar_torch.train -s <data_path> -m <out_path> --train_stage 1
     python -m gaussianavatar_torch.train ... --device cpu --max_steps 30
+    python -m gaussianavatar_torch.train ... --checkpoint_epochs 100   # resume
 
-Runs on the card unless `--device cpu` is given. Stage 2, `--dp`,
-`--profile_dir` and resuming (`--start_checkpoint`, `--checkpoint_epochs`)
-are not ported yet and raise. LPIPS is not ported yet either: training runs
-as with `--no_lpips`, and metrics.jsonl says so.
+Runs on the card unless `--device cpu` is given. `--checkpoint_epochs E`
+resumes from `<out_path>/net/iteration_E` at epoch E + 1 (network,
+optimizer state and iteration). `--start_checkpoint` is parsed and unused,
+as in the JAX train.py. Stage 2, `--dp` and `--profile_dir` are not ported
+yet and raise. LPIPS is not ported yet either: training runs as with
+`--no_lpips`, and metrics.jsonl says so.
 """
 
 import contextlib
@@ -27,9 +30,10 @@ def main(argv=None):
     parser.add_argument("--save_epochs", nargs="+", type=int, default=[100])
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument("--checkpoint_epochs", nargs="+", type=int, default=[])
+    # parsed for flag parity with the JAX CLI, which does not use it either
     parser.add_argument("--start_checkpoint", type=str, default=None)
     parser.add_argument("--max_steps", type=int, default=None,
-                        help="stop after N optimizer steps")
+                        help="stop once the iteration reaches N")
     parser.add_argument("--no_lpips", action="store_true",
                         help="train without the LPIPS term (the port has none yet)")
     parser.add_argument("--profile_dir", type=str, default=None)
@@ -42,8 +46,6 @@ def main(argv=None):
         ("--train_stage 2", cfg.model.train_stage != 1),
         ("--dp", args.dp != 1),
         ("--profile_dir", args.profile_dir is not None),
-        ("--start_checkpoint / --checkpoint_epochs (resume)",
-         bool(args.start_checkpoint or args.checkpoint_epochs)),
     ) if asked]
     if not_ported:
         raise NotImplementedError(f"not ported yet to gaussianavatar_torch: {', '.join(not_ported)}"
@@ -66,7 +68,7 @@ def main(argv=None):
         print(ignored_raster_note())
         print("Optimizing " + cfg.model.model_path)
         train(cfg, saving_epochs, device=args.device, max_steps=args.max_steps,
-              lpips_note=lpips_note)
+              lpips_note=lpips_note, checkpoint_epochs=args.checkpoint_epochs)
         print("\nTraining complete.")
 
 

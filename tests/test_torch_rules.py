@@ -106,7 +106,7 @@ def test_backward_kernel_call_raises_instead_of_falling_back(monkeypatch):
 def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
     import inspect
 
-    from gaussianavatar_torch import render_novel_pose, train
+    from gaussianavatar_torch import eval as eval_cli, render_novel_pose, render_novel_view, train
     from gaussianavatar_torch.engine import inference, loop
 
     assert inspect.signature(inference.load_trained).parameters["device"].default == "cuda"
@@ -116,8 +116,9 @@ def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
                          tconfig.OptimizationParams(), tconfig.RasterParams())
     with pytest.raises(RuntimeError, match="CUDA device requested"):
         inference.load_trained(cfg)
-    with pytest.raises(RuntimeError, match="CUDA device requested"):
-        render_novel_pose.main(["-m", str(tmp_path)])
+    for cli in (render_novel_pose, eval_cli, render_novel_view):
+        with pytest.raises(RuntimeError, match="CUDA device requested"):
+            cli.main(["-m", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA device requested"):
         train.main(["-s", str(tmp_path), "-m", str(tmp_path / "out")])
 

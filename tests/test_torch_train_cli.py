@@ -92,6 +92,6 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path):
 
     base = ["-s", str(tmp_path), "-m", str(tmp_path / "out"), "--device", "cpu"]
     for extra in (["--train_stage", "2"], ["--dp", "2"], ["--profile_dir", str(tmp_path)],
-                  ["--checkpoint_epochs", "10"]):
+                  ["--train_stage", "2", "--checkpoint_epochs", "10"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train.main(base + extra)
