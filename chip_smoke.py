@@ -31,7 +31,15 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      near where it was, both kernels launch once per step), `python -m
      gaussianavatar_torch.eval` on the 4 test frames (finite PSNR / SSIM,
      one H-fwd launch per 4 frames, frames/s), and `python -m
-     gaussianavatar_torch.render_novel_view` (4 orbit frames).
+     gaussianavatar_torch.render_novel_view` (4 orbit frames);
+  7. stage 2 on phase 6's output at the same widths (c_pose 64, nf 32),
+     through the users' entry points, the launch counts read around each:
+     `export_stage_1`, `gen_pose_map_frames --size 128`, 30 steps of
+     `train --train_stage 2` (H-fwd and H-bwd exactly once per step; the
+     last step's inputs of both held against their plain versions and
+     timed beside their bounds; steady it/s, peak memory, pose_loss), eval
+     of the 4 test frames (one H-fwd launch, frames/s) and 4 orbit frames
+     of novel view (one).
 It prints one JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {...}}. It needs CUDA and the repository around it.
 """
@@ -592,6 +600,85 @@ def phase_rest_of_path(card, work):
     return {name: resume_counts[name] + eval_counts[name] + counts[name] for name in counts}
 
 
+class _KernelRecorder:
+    """While active, the blend wrappers keep their last call's inputs (they
+    launch as before)."""
+
+    def __enter__(self):
+        from gaussianavatar_torch.ops import rasterize_tile
+
+        self.mod = rasterize_tile
+        self.real_fwd, self.real_bwd = rasterize_tile.blend_tiles, rasterize_tile.blend_tiles_bwd
+        self.rec = {}
+
+        def fwd(*a, **kw):
+            self.rec["fwd_args"], self.rec["fwd_kw"] = a, kw
+            return self.real_fwd(*a, **kw)
+
+        def bwd(*a, **kw):
+            self.rec["args"], self.rec["kw"] = a, kw
+            return self.real_bwd(*a, **kw)
+
+        rasterize_tile.blend_tiles, rasterize_tile.blend_tiles_bwd = fwd, bwd
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.blend_tiles, self.mod.blend_tiles_bwd = self.real_fwd, self.real_bwd
+
+
+def _hold_train_batch(rec, card, label):
+    """H-fwd and H-bwd against their plain versions on the inputs a training
+    step gave them (`rec` from _KernelRecorder), each timed beside its
+    bound. -> (H-fwd's error, H-bwd's error, {fwd_ms, fwd_plain_ms,
+    fwd_bound, bwd_ms, bwd_plain_ms, bwd_bound})."""
+    import torch
+
+    from gaussianavatar_torch.ops.rasterize_tile import (
+        blend_tiles, blend_tiles_bwd, blend_tiles_bwd_plain, blend_tiles_plain,
+        scatter_pair_grads,
+    )
+
+    fwd_args = tuple(a.detach() if torch.is_tensor(a) else a for a in rec["fwd_args"][:6])
+    fwd_caps = rec["fwd_kw"].get("caps", rec["fwd_args"][6] if len(rec["fwd_args"]) > 6
+                                 else None)
+    fwd_res = _compare(blend_tiles(*fwd_args, caps=fwd_caps),
+                       blend_tiles_plain(*fwd_args, caps=fwd_caps))
+    _check_blend(f"{label}, H-fwd", fwd_res)
+    fwd_ms = _time_ms(lambda: blend_tiles(*fwd_args, caps=fwd_caps), reps=20)
+    fwd_plain_ms = _time_ms(lambda: blend_tiles_plain(*fwd_args, caps=fwd_caps), reps=3, warmup=1)
+    fwd_bound = _blend_bound(fwd_args, fwd_caps)
+    _print_walk(f"{label} (H-fwd walk)", fwd_bound)
+    print(f"  {label}: H-fwd {fwd_ms:.4f} ms, plain {fwd_plain_ms:.3f} ms, bound "
+          f"{fwd_bound['bound_ms']:.4f} ms ({fwd_bound['bound_by']}) on {fwd_bound['pairs']} "
+          f"binned pairs; no library call; on {card}")
+
+    # then H-bwd against its plain version, per pair and through the
+    # scatter into the packed table
+    args, caps = rec["args"], rec["kw"].get("caps", rec["args"][10] if len(rec["args"]) > 10
+                                            else None)
+    bwd_args = tuple(a.detach() if torch.is_tensor(a) else a for a in args[:10])
+    print(f"  {label}: {bwd_args[0].shape[0] // 2} gaussians per view (padding included), "
+          f"{int(bwd_args[2][-1])} binned (tile, gaussian) pairs, "
+          f"{int(bwd_args[7].amax(1).max())} deepest contributor")
+    out_k = blend_tiles_bwd(*bwd_args, caps=caps)
+    out_p = blend_tiles_bwd_plain(*bwd_args, caps=caps)
+    err = _bwd_compare(f"{label}, per pair", out_k, out_p)
+    n_rows = bwd_args[0].shape[0]
+    _bwd_compare(f"{label}, packed table", scatter_pair_grads(out_k, bwd_args[1], n_rows)[:, :9],
+                 scatter_pair_grads(out_p, bwd_args[1], n_rows)[:, :9])
+    ms, plain_ms, bound = _time_bwd(label, bwd_args, caps, card)
+    return max(fwd_res["color"], fwd_res["T"]), err, {
+        "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms, "fwd_bound": fwd_bound,
+        "bwd_ms": ms, "bwd_plain_ms": plain_ms, "bwd_bound": bound}
+
+
+def _train_rate(out, last):
+    """Steady it/s between the logged steps 10 and `last` (metrics.jsonl)."""
+    records = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    steps = {r["step"]: r for r in records if "step" in r}
+    return steps, (last - 10) / (steps[last]["t"] - steps[10]["t"])
+
+
 def phase_train(device, card, work):
     """Stage-1 training at the canonical widths through the port's CLI."""
     import torch
@@ -599,8 +686,6 @@ def phase_train(device, card, work):
     from gaussianavatar_torch import train as train_cli
     from gaussianavatar_torch.data.synthetic_writer import write_synthetic_dataset
     from gaussianavatar_torch.engine.checkpoint import latest_epoch
-    from gaussianavatar_torch.ops import rasterize_tile
-    from gaussianavatar_torch.ops.rasterize_tile import blend_tiles_bwd_plain, scatter_pair_grads
     from gaussianavatar_torch.utils.cuda_build import LAUNCHES
 
     data, out = os.path.join(work, "data"), os.path.join(work, "out")
@@ -609,22 +694,9 @@ def phase_train(device, card, work):
     print(f"  wrote 8 training and 4 test frames of 512x512 with the port's writer in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    real_fwd, real_bwd = rasterize_tile.blend_tiles, rasterize_tile.blend_tiles_bwd
-    rec = {}
-
-    # keep the last step's inputs of both kernels; they launch as before
-    def recording_fwd(*a, **kw):
-        rec["fwd_args"], rec["fwd_kw"] = a, kw
-        return real_fwd(*a, **kw)
-
-    def recording(*a, **kw):
-        rec["args"], rec["kw"] = a, kw
-        return real_bwd(*a, **kw)
-
     argv = _train_argv(data, out) + ["--max_steps", str(TRAIN_STEPS)]
     torch.cuda.reset_peak_memory_stats()
-    try:
-        rasterize_tile.blend_tiles, rasterize_tile.blend_tiles_bwd = recording_fwd, recording
+    with _KernelRecorder() as recorder:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
         t0 = time.perf_counter()
@@ -632,18 +704,14 @@ def phase_train(device, card, work):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(LAUNCHES)
-    finally:
-        rasterize_tile.blend_tiles, rasterize_tile.blend_tiles_bwd = real_fwd, real_bwd
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     print(f"  kernel launches in the training run: {counts} ({TRAIN_STEPS} steps)")
     for name in TRAIN_KERNELS:
         if counts[name] != TRAIN_STEPS:
             _fail(f"the training run launched {name} {counts[name]} times, not once per step")
 
-    records = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
-    steps = {r["step"]: r for r in records if "step" in r}
+    steps, rate = _train_rate(out, TRAIN_STEPS)
     first, last = steps[1]["total"], steps[TRAIN_STEPS]["total"]
-    rate = (TRAIN_STEPS - 10) / (steps[TRAIN_STEPS]["t"] - steps[10]["t"])
     print(f"  training: {rate:.2f} it/s steady state (steps 10-{TRAIN_STEPS}), loss "
           f"{first:.5f} at step 1 -> {last:.5f} at step {TRAIN_STEPS}, peak memory "
           f"{peak_gb:.2f} GiB, raster overflow {steps[TRAIN_STEPS]['raster_overflow']:.0f} "
@@ -653,48 +721,87 @@ def phase_train(device, card, work):
     if latest_epoch(out) is None:
         _fail("no checkpoint after training")
 
-    # the last step's own batch: H-fwd against the plain version, timed
-    fwd_args = tuple(a.detach() if torch.is_tensor(a) else a for a in rec["fwd_args"][:6])
-    fwd_caps = rec["fwd_kw"].get("caps", rec["fwd_args"][6] if len(rec["fwd_args"]) > 6
-                                 else None)
-    fwd_res = _compare(real_fwd(*fwd_args, caps=fwd_caps),
-                       rasterize_tile.blend_tiles_plain(*fwd_args, caps=fwd_caps))
-    _check_blend("train batch, H-fwd", fwd_res)
-    fwd_ms = _time_ms(lambda: real_fwd(*fwd_args, caps=fwd_caps), reps=20)
-    fwd_plain_ms = _time_ms(lambda: rasterize_tile.blend_tiles_plain(*fwd_args, caps=fwd_caps),
-                            reps=3, warmup=1)
-    fwd_bound = _blend_bound(fwd_args, fwd_caps)
-    _print_walk("train batch (H-fwd walk)", fwd_bound)
-    print(f"  train batch: H-fwd {fwd_ms:.4f} ms, plain {fwd_plain_ms:.3f} ms, bound "
-          f"{fwd_bound['bound_ms']:.4f} ms ({fwd_bound['bound_by']}) on {fwd_bound['pairs']} "
-          f"binned pairs; no library call; on {card}")
-
-    # then H-bwd against its plain version, per pair and through the
-    # scatter into the packed table
-    args, caps = rec["args"], rec["kw"].get("caps", rec["args"][10] if len(rec["args"]) > 10
-                                            else None)
-    bwd_args = tuple(a.detach() if torch.is_tensor(a) else a for a in args[:10])
-    print(f"  train batch: {bwd_args[0].shape[0] // 2} gaussians per view (padding included), "
-          f"{int(bwd_args[2][-1])} binned (tile, gaussian) pairs, "
-          f"{int(bwd_args[7].amax(1).max())} deepest contributor")
-    out_k = real_bwd(*bwd_args, caps=caps)
-    out_p = blend_tiles_bwd_plain(*bwd_args, caps=caps)
-    err = _bwd_compare("train batch, per pair", out_k, out_p)
-    n_rows = bwd_args[0].shape[0]
-    _bwd_compare("train batch, packed table", scatter_pair_grads(out_k, bwd_args[1], n_rows)[:, :9],
-                 scatter_pair_grads(out_p, bwd_args[1], n_rows)[:, :9])
-    ms, plain_ms, bound = _time_bwd("train batch", bwd_args, caps, card)
-    fwd_err = max(fwd_res["color"], fwd_res["T"])
+    # the last step's own batch: both kernels against their plain versions, timed
+    fwd_err, err, t = _hold_train_batch(recorder.rec, card, "train batch")
     return fwd_err, {
         "name": "blend_bwd", "route": "cuda",
         "source": "gaussianavatar_torch/csrc/blend_bwd.cu",
         "replaces": "gaussianavatar_tpu/ops/rasterize_ragged.py:405",
         "launches": counts["blend_bwd"],
         "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+        "ms": t["bwd_ms"], "plain_ms": t["bwd_plain_ms"],
+        "bound_ms": t["bwd_bound"]["bound_ms"], "bound_by": t["bwd_bound"]["bound_by"],
         "library_ms": None,
     }, counts
+
+
+def phase_stage2(device, card, work):
+    """Stage 2 at the canonical widths on phase 5/6's output, through the
+    users' entry points, each with the launch counts read around it: the
+    export of the stage-1 poses, the per-frame posmaps at 128, 30 steps of
+    `train --train_stage 2` (both kernels once per step, then held against
+    their plain versions on the last step's batch), eval of the 4 test
+    frames (one H-fwd launch) and 4 orbit frames of novel view (one)."""
+    import torch
+
+    from gaussianavatar_torch import (
+        eval as eval_cli, export_stage_1, gen_pose_map_frames, render_novel_view,
+        train as train_cli,
+    )
+    from gaussianavatar_torch.engine import checkpoint as ckpt
+
+    data, out1 = os.path.join(work, "data"), os.path.join(work, "out")
+    out = os.path.join(work, "out_stage2")
+    stage1 = ckpt.ckpt_dir(out1, ckpt.latest_epoch(out1, ckpt.TRAIN_NAME))
+    t0 = time.perf_counter()
+    export_stage_1.main(["-m", out1, "-s", data])
+    gen_pose_map_frames.main(["--source_path", data, "--synthetic", "--size", "128"])
+    print(f"  export and 12 posmaps of 128x128 in {time.perf_counter() - t0:.1f} s "
+          f"(stage 1: {os.path.relpath(stage1, work)})")
+
+    argv = ["-s", data, "-m", out, "--train_stage", "2", "--stage1_out_path", stage1,
+            "--dataset_type", "synthetic", "--no_lpips", "--max_steps", str(TRAIN_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    with _KernelRecorder() as recorder:
+        _, counts, wall = _run_counted(train_cli.main, argv)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  kernel launches in the stage-2 training run: {counts} ({TRAIN_STEPS} steps)")
+    for name in TRAIN_KERNELS:
+        if counts[name] != TRAIN_STEPS:
+            _fail(f"the stage-2 run launched {name} {counts[name]} times, not once per step")
+    steps, rate = _train_rate(out, TRAIN_STEPS)
+    last = steps[TRAIN_STEPS]
+    print(f"  stage-2 training: {rate:.2f} it/s steady state (steps 10-{TRAIN_STEPS}), loss "
+          f"{steps[1]['total']:.5f} at step 1 -> {last['total']:.5f} at step {TRAIN_STEPS}, "
+          f"pose_loss {last['pose']:.6f}, peak memory {peak_gb:.2f} GiB, raster overflow "
+          f"{last['raster_overflow']:.0f} pairs, {wall:.1f} s in all (setup included), on {card}")
+    if not all(math.isfinite(r["total"]) and math.isfinite(r["pose"]) for r in steps.values()) \
+            or not last["pose"] > 0:
+        _fail("stage-2 loss or pose_loss not finite, or no pose feature map")
+    saved = torch.load(os.path.join(ckpt.ckpt_dir(out, ckpt.latest_epoch(out, ckpt.TRAIN_NAME)),
+                                    ckpt.TRAIN_NAME), weights_only=True)
+    if saved["iteration"] != TRAIN_STEPS or set(saved["optimizer"]) != {"net", "pose_enc"}:
+        _fail("the stage-2 save does not hold its iteration and the stage-2 optimizer groups")
+    fwd_err, bwd_err, t = _hold_train_batch(recorder.rec, card, "stage-2 train batch")
+
+    result, eval_counts, wall = _run_counted(eval_cli.main, ["-m", out])
+    print(f"  stage-2 eval: {result['frames']} test frames of 512x512, PSNR {result['psnr']:.3f} "
+          f"SSIM {result['ssim']:.5f}, {result['frames'] / result['render_s']:.2f} frames/s in "
+          f"the render calls ({wall:.1f} s in all, setup included), launches {eval_counts}, "
+          f"on {card}")
+    n_batches = -(-result["frames"] // eval_cli.EVAL_B)
+    if not all(math.isfinite(result[k]) for k in ("psnr", "ssim")):
+        _fail("stage-2 eval wrote no finite PSNR / SSIM")
+    if eval_counts["blend_fwd"] != n_batches or eval_counts["blend_bwd"] != 0:
+        _fail(f"stage-2 eval launched {eval_counts}, not H-fwd once per {eval_cli.EVAL_B} frames")
+
+    _, view_counts, wall = _run_counted(render_novel_view.main, ["-m", out, "--frames", "4"])
+    pngs = sorted(os.listdir(os.path.join(out, "novel_view", "pose_0")))
+    print(f"  stage-2 novel view: {pngs} in {wall:.1f} s, launches {view_counts}")
+    if pngs != [f"{i:05d}.png" for i in range(4)] or view_counts["blend_fwd"] != 1:
+        _fail("the stage-2 novel view did not write 4 frames through one H-fwd launch")
+    total = {name: counts[name] + eval_counts[name] + view_counts[name] for name in counts}
+    return fwd_err, bwd_err, total
 
 
 def main():
@@ -726,11 +833,15 @@ def main():
         train_fwd_err, bwd, train_counts = phase_train(device, card, work)
         print("phase 6: resume, eval and novel view on phase 5's output")
         rest_counts = phase_rest_of_path(card, work)
+        print("phase 7: stage 2 on phase 6's output: export, posmaps, training, eval, novel view")
+        s2_fwd_err, s2_bwd_err, s2_counts = phase_stage2(device, card, work)
     # launches: each main path's run, added (the render's H-fwd, training's,
-    # then the resumed run's, eval's and the novel view's)
-    fwd["launches"] += train_counts["blend_fwd"] + rest_counts["blend_fwd"]
-    bwd["launches"] += rest_counts["blend_bwd"]
-    fwd["max_abs_err"] = max(fwd["max_abs_err"], train_fwd_err)
+    # then the resumed run's, eval's and the novel view's, then stage 2's)
+    fwd["launches"] += (train_counts["blend_fwd"] + rest_counts["blend_fwd"]
+                        + s2_counts["blend_fwd"])
+    bwd["launches"] += rest_counts["blend_bwd"] + s2_counts["blend_bwd"]
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], train_fwd_err, s2_fwd_err)
+    bwd["max_abs_err"] = max(bwd["max_abs_err"], s2_bwd_err)
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [fwd, bwd]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

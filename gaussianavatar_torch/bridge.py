@@ -1,5 +1,5 @@
-"""Carry a stage-1 avatar's state between the JAX package's flax/optax trees
-and the port, both ways.
+"""Carry an avatar's state (stage 1 or 2) between the JAX package's
+flax/optax trees and the port, both ways.
 
 Leaves are named by their path in the flax trees: ("pop", "ShapeDecoder_0",
 "Dense_3", "kernel") in `params`, ("pop", "ShapeDecoder_0", "BatchNorm_3",
@@ -8,17 +8,29 @@ and `to_port` / `to_jax` change the layout:
 
   - Dense kernel (in, out)     <-> Linear weight (out, in); bias as is
   - Conv kernel HWIO           <-> Conv2d weight OIHW (both are correlations)
+  - ConvTranspose4x4s2 kernel  <-> ConvTranspose2d weight (in, out, kh, kw)
+    HWIO, the taps of an           with the taps flipped: w = k[::-1, ::-1]
+    input-dilated correlation      transposed (2, 3, 0, 1)
   - BatchNorm scale / bias     <-> weight / bias; batch_stats mean / var <->
                                    running_mean / running_var
   - geo_feature NHWC (1,F,F,C) <-> NCHW (1,C,F,F), the port's layout
   - pose_embedding, transl_embedding as they are.
 
+The UNets (the stage-2 `pose_encoder` and the 'unet' smoother `pop/
+UnetNoCond5DS_0`) name their blocks Conv2DBlock_i / UpConv2DBlock_i, each
+with Conv_0 or ConvTranspose4x4s2_0 and BatchNorm_0; the port lists them as
+`down.i` / `up.i` with `conv` and `bn`. The 'bottleneck' smoother's Conv_i
+and ConvTranspose4x4s2_i are `down.i` and `up.i`.
+
 An optimizer moment has its parameter's layout, so the same functions carry
-the optax state: `multi_transform` over the groups net, geo, embed (and
-pose_enc, empty in stage 1); net and geo are optax.adam (a ScaleByAdamState
-count, mu and nu, and the schedule's count), embed the JAX package's
-SparseAdamState (step, mu, nu). Every group's moment trees mirror the params
-tree, with the other groups' leaves masked out.
+the optax state: `multi_transform` over the groups net, geo, embed and
+pose_enc. Stage 1 trains net and geo with optax.adam (a ScaleByAdamState
+count, mu and nu, and the schedule's count) and embed with the JAX
+package's SparseAdamState (step, mu, nu), pose_enc set to zero; stage 2
+trains net and pose_enc with optax.adam and sets geo and embed to zero. A
+group set to zero holds no state, and the port's optimizer has no such
+group. Every group's moment trees mirror the params tree, with the other
+groups' leaves masked out.
 
   - `state_dict_from_jax(params, batch_stats)`: the port's AvatarNet
     `state_dict` (`geom_conv_state_dict`, `shape_decoder_state_dict`: of
@@ -48,11 +60,22 @@ from torch import nn
 from gaussianavatar_torch.engine.train_step import TrainState
 
 _BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+# flax layout -> port layout
+_PERM = {"nhwc": (0, 3, 1, 2), "conv": (3, 2, 0, 1), "dense": (1, 0)}
 _MOMENTS = ("mu", "nu")
 
 
 def _index(name: str) -> int:
-    return int(re.fullmatch(r"[A-Za-z]+_(\d+)", name).group(1))
+    return int(re.fullmatch(r"[A-Za-z0-9]+_(\d+)", name).group(1))
+
+
+def _unet_key(block: str, layer: str, leaf: str) -> str:
+    """A UNet leaf (Conv2DBlock_i / UpConv2DBlock_i, its layer, the leaf)
+    -> its key under the port's UNet module."""
+    part = {"Conv2DBlock": "down", "UpConv2DBlock": "up"}[block.rsplit("_", 1)[0]]
+    if layer.startswith("BatchNorm_"):
+        return f"{part}.{_index(block)}.bn.{_BN_LEAF[leaf]}"
+    return f"{part}.{_index(block)}.conv." + {"kernel": "weight", "bias": "bias"}[leaf]
 
 
 def port_key(path: Sequence[str]) -> str:
@@ -60,39 +83,54 @@ def port_key(path: Sequence[str]) -> str:
     path = tuple(path)
     if path in (("geo_feature",), ("pose_embedding",), ("transl_embedding",)):
         return path[0]
+    if len(path) == 4 and path[0] == "pose_encoder":
+        return "pose_encoder." + _unet_key(*path[1:])
     if len(path) == 4 and path[0] == "pop":
         sub, layer, leaf = path[1:]
         i = _index(layer)
         if sub == "GeomConvLayers_0" and layer.startswith("Conv_") and leaf == "kernel":
             return f"pop.geom.convs.{i}.weight"
+        if sub == "GeomConvBottleneckLayers_0" and leaf == "kernel":
+            return f"pop.geom.{'down' if layer.startswith('Conv_') else 'up'}.{i}.weight"
         if sub == "ShapeDecoder_0" and layer.startswith("Dense_"):
             return f"pop.decoder.dense.{i}." + {"kernel": "weight", "bias": "bias"}[leaf]
         if sub == "ShapeDecoder_0" and layer.startswith("BatchNorm_"):
             return f"pop.decoder.bn.{i}.{_BN_LEAF[leaf]}"
-    raise NotImplementedError(f"no port counterpart for flax leaf {'/'.join(path)} "
-                              "(POP submodules other than GeomConvLayers and ShapeDecoder "
-                              "are not ported yet)")
+    if len(path) == 5 and path[:2] == ("pop", "UnetNoCond5DS_0"):
+        return "pop.geom." + _unet_key(*path[2:])
+    raise NotImplementedError(f"no port counterpart for flax leaf {'/'.join(path)}")
 
 
-def _perm(path: Sequence[str], ndim: int):
-    """The axis permutation from the flax layout to the port's, or None."""
+def _layout(path: Sequence[str], ndim: int) -> Optional[str]:
+    """How a flax leaf's layout differs from the port's: "nhwc", "conv",
+    "conv_transpose", "dense" or None (the same)."""
     if path[0] == "geo_feature":
-        return (0, 3, 1, 2)
-    if path[-1] == "kernel":
-        return (3, 2, 0, 1) if ndim == 4 else (1, 0)
-    return None
+        return "nhwc"
+    if path[-1] != "kernel":
+        return None
+    if ndim == 2:
+        return "dense"
+    return "conv_transpose" if path[-2].startswith("ConvTranspose4x4s2_") else "conv"
 
 
 def to_port(path: Sequence[str], a) -> torch.Tensor:
     a = np.asarray(a, np.float32)
-    perm = _perm(path, a.ndim)
-    return torch.tensor(a if perm is None else a.transpose(perm))
+    kind = _layout(path, a.ndim)
+    if kind == "conv_transpose":
+        a = a[::-1, ::-1].transpose(2, 3, 0, 1)
+    elif kind is not None:
+        a = a.transpose(_PERM[kind])
+    return torch.tensor(np.ascontiguousarray(a))
 
 
 def to_jax(path: Sequence[str], t: torch.Tensor) -> np.ndarray:
     a = t.detach().cpu().numpy().astype(np.float32)
-    perm = _perm(path, a.ndim)
-    return np.ascontiguousarray(a if perm is None else a.transpose(np.argsort(perm)))
+    kind = _layout(path, a.ndim)
+    if kind == "conv_transpose":
+        a = a.transpose(2, 3, 0, 1)[::-1, ::-1]
+    elif kind is not None:
+        a = a.transpose(np.argsort(_PERM[kind]))
+    return np.ascontiguousarray(a)
 
 
 def _leaves(tree, path=()):
@@ -135,7 +173,7 @@ def _opt_leaf(path: Tuple) -> Tuple[str, str, Tuple]:
 
 
 def state_dict_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
-    """The stage-1 AvatarNet's flax params + batch_stats -> its state_dict."""
+    """An AvatarNet's flax params + batch_stats -> its state_dict."""
     return {port_key(p): to_port(p, a)
             for tree in (params, batch_stats) for p, a in _leaves(tree)}
 
@@ -157,25 +195,27 @@ def shape_decoder_state_dict(params: dict, batch_stats: dict) -> Dict[str, torch
 
 
 def optimizer_state_from_jax(opt_state) -> dict:
-    """The optax state of the stage-1 build_optimizer (numpy tree) -> the
-    port's GroupOptimizer.state_dict() layout."""
-    out = {g: {"mu": {}, "nu": {}} for g in ("net", "geo", "embed")}
+    """The optax state of build_optimizer (numpy tree) -> the port's
+    GroupOptimizer.state_dict() layout: one entry per group that holds
+    state (a group set to zero holds none)."""
+    out = {}
     for path, a in _leaves(opt_state):
         group, kind, ppath = _opt_leaf(path)
-        if group not in out:
-            continue
+        g = out.setdefault(group, {"mu": {}, "nu": {}})
         if kind == "count":
             # the embed group's SparseAdam keeps its step on the device
-            out[group]["step_count" if group == "embed" else "count"] = (
-                torch.tensor(int(a), dtype=torch.int32) if group == "embed" else int(a))
+            if group == "embed":
+                g["step_count"] = torch.tensor(int(a), dtype=torch.int32)
+            else:
+                g["count"] = int(a)
         else:
-            out[group][kind][port_key(ppath)] = to_port(ppath, a)
+            g[kind][port_key(ppath)] = to_port(ppath, a)
     return out
 
 
 def train_state_from_jax(net: nn.Module, optimizer, params: dict, batch_stats: dict,
                          iteration, opt_state=None) -> TrainState:
-    """The stage-1 AvatarNet `net` loaded with a JAX TrainState's params and
+    """The AvatarNet `net` loaded with a JAX TrainState's params and
     batch_stats (numpy trees), wrapped with `optimizer` at the JAX state's
     iteration; with `opt_state` (the optax state as a numpy tree) the
     optimizer takes its counts and moments, else it stays as it is."""

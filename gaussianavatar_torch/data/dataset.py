@@ -1,19 +1,25 @@
-"""Monocular avatar data (counterpart of gaussianavatar_tpu/data/dataset.py),
-as far as stage-1 training and rendering need it:
+"""Monocular avatar data (counterpart of gaussianavatar_tpu/data/dataset.py):
 
     data_path/{train,test}/
         images/*.png|jpg      masks/*.png
         cam_parms.npz         (static camera)    cam_parms/<name>.npz (per frame)
-        smpl_parms.pth (or .npz)
+        smpl_parms.pth (or .npz)      smpl_parms_pred.pth (stage 2)
+        inp_map/inp_posemap_{S}_{idx:08d}.npz   (stage 2: posmap{S}, (S, S, 3))
+
+Stage 2 reads the poses from `smpl_parms_pred.pth` (export_stage_1 writes
+it) and each frame's input posmap (gen_pose_map_frames writes them), as
+(3, S, S) float32, the port's NCHW; with `--fixed_inp` no per-frame posmap
+is read (the caller supplies the one fixed posmap).
 
   - `FrameTable`: the part of the JAX package's `_MonoBase` that restoring a
     trained model needs: the frame count and the per-frame pose table.
   - `MonoDatasetTrain`: training frames, each image composited onto white
     where its mask is below 128, decoded once (PIL, imported where a frame
     is decoded) and cached as uint8; `frame_u8` feeds the train loop's
-    device-resident GT bank.
+    device-resident GT bank, `inp_posmap` its stage-2 posmap bank.
   - `MonoDatasetTest`: the held-out split for eval: per item the image as
-    float32 in [0, 1] (the same decode), the frame's pose and translation.
+    float32 in [0, 1] (the same decode), the frame's pose and translation
+    (and its input posmap in stage 2).
   - `MonoDatasetNovelPose`: poses from an external folder, a fixed camera.
   - `MonoDatasetNovelView`: the camera orbiting one pose of the test split
     (`_rotate_extrinsics`).
@@ -69,6 +75,15 @@ def _camera_item(R, T, intrinsic, height, width):
     }
 
 
+def load_inp_posmap(folder: str, size: int, pose_idx: int) -> np.ndarray:
+    """`folder/inp_map/inp_posemap_{size}_{pose_idx:08d}.npz` -> (3, S, S)
+    float32 (the file holds (S, S, 3))."""
+    path = join(folder, "inp_map", f"inp_posemap_{size}_{pose_idx:08d}.npz")
+    with np.load(path) as f:
+        pm = f["posmap" + str(size)]
+    return np.ascontiguousarray(np.asarray(pm, np.float32).transpose(2, 0, 1))
+
+
 def _read_static_cam(folder, name="cam_parms.npz"):
     with np.load(join(folder, name)) as cam:
         extr, intr = cam["extrinsic"], cam["intrinsic"]
@@ -115,6 +130,9 @@ class _MonoSplit(FrameTable):
         self.cam_static = bool(model_parms.cam_static)
         if self.cam_static:
             self.R, self.T, self.intrinsic = _read_static_cam(self.data_folder)
+        self.inp_posmap_size = model_parms.inp_posmap_size
+        # stage 2 without --fixed_inp: every frame has its input posmap
+        self.per_frame_inp = model_parms.train_stage == 2 and not model_parms.fixed_inp
         self._frames: Dict[str, np.ndarray] = {}   # name -> (3, H, W) uint8
         self._hw: Optional[tuple] = None
 
@@ -143,6 +161,10 @@ class _MonoSplit(FrameTable):
         img = np.clip(img / 255.0, 0.0, 1.0).astype(np.float32)
         return np.clip(np.rint(img * 255.0), 0, 255).astype(np.uint8).transpose(2, 0, 1)
 
+    def inp_posmap(self, pose_idx: int) -> np.ndarray:
+        """Frame `pose_idx`'s input posmap, (3, S, S) float32."""
+        return load_inp_posmap(self.data_folder, self.inp_posmap_size, pose_idx)
+
     def frame_u8(self, index: int) -> np.ndarray:
         """Frame `index` as (3, H, W) uint8, decoded on first use."""
         name = self.name_list[index][1]
@@ -165,8 +187,9 @@ class _MonoSplit(FrameTable):
 
 class MonoDatasetTrain(_MonoSplit):
     """Training frames: per item the frame index, the camera and the smplx
-    rest pose where the body is smplx. The images are read through
-    `frame_u8` (the train loop's GT bank), not per item."""
+    rest pose where the body is smplx. The images and stage 2's input
+    posmaps are read through `frame_u8` and `inp_posmap` (the train loop's
+    banks), not per item."""
 
     def __getitem__(self, index) -> Dict[str, np.ndarray]:
         pose_idx, name = self.name_list[index]
@@ -198,6 +221,8 @@ class MonoDatasetTest(_MonoSplit):
         item.update(_camera_item(R, T, intrinsic, *self.image_hw()))
         if self.smpl_type == "smplx":
             item["rest_pose"] = self.rest_pose_data[pose_idx]
+        if self.per_frame_inp:
+            item["inp_pos_map"] = self.inp_posmap(pose_idx)
         return item
 
 
@@ -227,13 +252,14 @@ class BatchLoader:
 
 class MonoDatasetNovelPose:
     """Poses from an external folder (assets/test_pose by default), a static
-    camera, height x width frames."""
+    camera, height x width frames; in stage 2 (without --fixed_inp) each
+    pose's input posmap from the folder's inp_map/."""
 
     def __init__(self, model_parms, height: int = 1024, width: int = 1024):
         self.data_folder = model_parms.test_folder
         self.smpl_type = model_parms.smpl_type
-        if model_parms.train_stage != 1:
-            raise NotImplementedError("the port renders stage-1 avatars; stage 2 comes later")
+        self.inp_posmap_size = model_parms.inp_posmap_size
+        self.per_frame_inp = model_parms.train_stage == 2 and not model_parms.fixed_inp
         self.height, self.width = height, width
 
         self.smpl_data = load_smpl_parms(join(self.data_folder, "smpl_parms.pth"))
@@ -258,6 +284,8 @@ class MonoDatasetNovelPose:
         item.update(_camera_item(self.R, self.T, self.intrinsic, self.height, self.width))
         if self.smpl_type == "smplx":
             item["rest_pose"] = self.rest_pose_data[index]
+        if self.per_frame_inp:
+            item["inp_pos_map"] = load_inp_posmap(self.data_folder, self.inp_posmap_size, index)
         return item
 
 
@@ -333,4 +361,6 @@ class MonoDatasetNovelView(_MonoSplit):
         item.update(_camera_item(R, T, self.intrinsic, *self.image_hw()))
         if self.smpl_type == "smplx":
             item["rest_pose"] = self.rest_pose_data[pose_idx]
+        if self.per_frame_inp:
+            item["inp_pos_map"] = self.inp_posmap(pose_idx)
         return item

@@ -6,7 +6,8 @@ the optimizer groups' counts and moments and the iteration, which resuming
 with `--checkpoint_epochs` needs. (The JAX package keeps the whole
 TrainState in one `net.ckpt`.) A JAX checkpoint converts with
 scripts/convert_jax_checkpoint_torch.py, a port checkpoint back with
-scripts/convert_torch_checkpoint_jax.py.
+scripts/convert_torch_checkpoint_jax.py. `stage_load` boots stage 2 from a
+stage-1 save.
 """
 
 from __future__ import annotations
@@ -71,6 +72,30 @@ def load_checkpoint(model_path: str, epoch: int, net: nn.Module) -> nn.Module:
             "scripts/convert_jax_checkpoint_torch.py")
     device = next(net.parameters()).device
     net.load_state_dict(torch.load(path, map_location=device, weights_only=True))
+    return net
+
+
+# what stage 2 takes from stage 1: the POP decoder (parameters and BatchNorm
+# statistics), the geometry features and the per-frame embeddings
+STAGE1_PREFIXES = ("pop.", "geo_feature", "pose_embedding", "transl_embedding")
+
+
+def stage_load(net: nn.Module, stage1_path: str) -> nn.Module:
+    """Boot a stage-2 network from a stage-1 save (`stage1_path` is its
+    `net/iteration_N` directory, holding `net_torch.pt`): copy every tensor
+    under STAGE1_PREFIXES; the pose encoder keeps its fresh initialisation.
+    Counterpart of the JAX package's `engine/loop.stage_load`."""
+    path = join(stage1_path, CKPT_NAME)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"{path} not found: --stage1_out_path names a stage-1 "
+                                "net/iteration_N directory of the port")
+    device = next(net.parameters()).device
+    saved = torch.load(path, map_location=device, weights_only=True)
+    own = net.state_dict()
+    with torch.no_grad():
+        for key, value in saved.items():
+            if key.startswith(STAGE1_PREFIXES):
+                own[key].copy_(value)
     return net
 
 

@@ -6,10 +6,14 @@ config + checkpoint and return a render function.
 Stage-1 models render from a canonical cache: the decoder sees no per-frame
 input, so its outputs are decoded once (`precompute_canonical`) and every
 frame runs only LBS -> skinning -> projection -> binning -> the blend.
+Stage-2 models decode every frame: its input posmap (`inp_pos_map` in the
+batch, NCHW) goes through the pose encoder and the decoder in eval mode, B
+frames per call, then the same render.
 """
 
 from __future__ import annotations
 
+from os.path import join
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -73,7 +77,7 @@ def _to_device(batch: dict, device) -> dict:
 
 def _render_posed(net, body_model, assets, res, scales, shs, batch, H, W, bg,
                   raster_cfg, iteration):
-    """Decoded canonical gaussians (Nv, ...) + a batch of poses/cameras ->
+    """Decoded gaussians (B, Nv, ...) + a batch of B poses/cameras ->
     ((B, 3, H, W), overflow)."""
     idx = batch["pose_idx"].long().reshape(-1)
     B = idx.shape[0]
@@ -82,13 +86,12 @@ def _render_posed(net, body_model, assets, res, scales, shs, batch, H, W, bg,
     else:
         pose, transl = net.lookup(idx)
     with record_function("render::pose_gaussians"):
-        world = pose_gaussians(body_model, assets, pose, transl, res[None].expand(B, -1, -1),
+        world = pose_gaussians(body_model, assets, pose, transl, res,
                                rest_pose=batch.get("rest_pose"))
     with record_function("render::attributes"):
-        scales_w = scale_warmup(scales[None], iteration)
-        scales3, rotations, opacity = gaussian_attributes(assets, scales_w.expand(B, -1, -1))
+        scales3, rotations, opacity = gaussian_attributes(assets, scale_warmup(scales, iteration))
     return rasterize_views(
-        world, shs[None].expand(B, -1, -1), scales3, rotations, opacity,
+        world, shs, scales3, rotations, opacity,
         batch["world_view_transform"], batch["full_proj_transform"],
         batch["tan_fovx"].reshape(B), batch["tan_fovy"].reshape(B), H, W, bg,
         config=raster_cfg,
@@ -98,7 +101,7 @@ def _render_posed(net, body_model, assets, res, scales, shs, batch, H, W, bg,
 def precompute_canonical(net: AvatarNet, assets: AvatarAssets):
     """Stage-1 decoder outputs are pose-independent: decode ONCE."""
     with torch.no_grad():
-        res, scales, shs = net.decode(assets, 1)
+        res, scales, shs, _ = net.decode(assets, 1)
     return res[0], scales[0], shs[0]
 
 
@@ -112,9 +115,11 @@ def make_cached_render_fn(net: AvatarNet, body_model: BodyModel, assets: AvatarA
 
     @torch.no_grad()
     def render(cache, batch, iteration: int = INFERENCE_ITERATION):
-        res, scales, shs = cache
-        out = _render_posed(net, body_model, assets, res, scales, shs,
-                            _to_device(batch, device), H, W, bg, raster_cfg, iteration)
+        b = _to_device(batch, device)
+        B = b["pose_idx"].reshape(-1).shape[0]
+        res, scales, shs = (x[None].expand(B, -1, -1) for x in cache)
+        out = _render_posed(net, body_model, assets, res, scales, shs, b, H, W, bg,
+                            raster_cfg, iteration)
         return out if with_overflow else out[0]
 
     return render
@@ -123,16 +128,23 @@ def make_cached_render_fn(net: AvatarNet, body_model: BodyModel, assets: AvatarA
 def make_render_fn(net: AvatarNet, body_model: BodyModel, assets: AvatarAssets,
                    H: int, W: int, bg_color, raster_cfg: RasterizeConfig,
                    with_overflow: bool = False):
-    """Full-decode renderer: render(batch, iteration=...) decodes the
-    canonical gaussians on every call, then renders like the cached path."""
+    """Full-decode renderer: render(batch, iteration=...) decodes on every
+    call, in the network's current mode. With `inp_pos_map` (B, 3, F, F) in
+    the batch it decodes each of the B frames from its posmap (stage 2);
+    without, it decodes once and expands (stage 1)."""
     device = assets.query_points.device
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=device)
 
     @torch.no_grad()
     def render(batch, iteration: int = INFERENCE_ITERATION):
-        res, scales, shs = net.decode(assets, 1)
-        out = _render_posed(net, body_model, assets, res[0], scales[0], shs[0],
-                            _to_device(batch, device), H, W, bg, raster_cfg, iteration)
+        b = _to_device(batch, device)
+        B = b["pose_idx"].reshape(-1).shape[0]
+        inp = b.get("inp_pos_map")
+        res, scales, shs, _ = net.decode(assets, 1 if inp is None else B, inp)
+        if inp is None:
+            res, scales, shs = (x.expand(B, -1, -1) for x in (res, scales, shs))
+        out = _render_posed(net, body_model, assets, res, scales, shs, b, H, W, bg,
+                            raster_cfg, iteration)
         return out if with_overflow else out[0]
 
     return render
@@ -140,11 +152,15 @@ def make_render_fn(net: AvatarNet, body_model: BodyModel, assets: AvatarAssets,
 
 def make_renderer(inf: InferenceBundle, height: int, width: int,
                   with_overflow: bool = False):
-    """render(batch, iteration=...) for a trained stage-1 avatar, through the
-    canonical cache."""
+    """render(batch, iteration=...) for a trained avatar: stage 1 through
+    the canonical cache, stage 2 decoding every frame from the batch's
+    `inp_pos_map`."""
     cfg, bundle = inf.cfg, inf.bundle
     rcfg = raster_config(cfg)
     bg = (1.0, 1.0, 1.0) if cfg.model.white_background else (0.0, 0.0, 0.0)
+    if cfg.model.train_stage == 2:
+        return make_render_fn(bundle.net, bundle.body_model, bundle.assets, height, width, bg,
+                              rcfg, with_overflow=with_overflow)
     cache = precompute_canonical(bundle.net, bundle.assets)
     cached = make_cached_render_fn(bundle.net, bundle.body_model, bundle.assets,
                                    height, width, bg, rcfg, with_overflow=with_overflow)
@@ -155,8 +171,24 @@ def make_renderer(inf: InferenceBundle, height: int, width: int,
     return render
 
 
-def batch_from_item(item: dict) -> dict:
-    """Dataset item -> single-frame batch (numpy, leading dim 1)."""
+def load_fixed_inp(mp) -> Optional[np.ndarray]:
+    """The one input posmap (3, F, F) of a `--fixed_inp` stage-2 model
+    (ModelParams `mp`): the canonical posmap at the input resolution; None
+    for other models."""
+    if mp.train_stage != 2 or not mp.fixed_inp:
+        return None
+    S = mp.inp_posmap_size
+    path = join(mp.source_path, "train", f"query_posemap_{S}_cano_{mp.smpl_type}.npz")
+    with np.load(path) as f:
+        return np.ascontiguousarray(f["posmap" + str(S)].astype(np.float32).transpose(2, 0, 1))
+
+
+def batch_from_item(item: dict, fix_inp: Optional[np.ndarray] = None) -> dict:
+    """Dataset item -> single-frame batch (numpy, leading dim 1); `fix_inp`
+    (3, F, F) becomes its input posmap."""
     drop = {"FovX", "FovY", "height", "width", "projection_matrix",
             "camera_center", "original_image"}
-    return {k: np.asarray(v)[None] for k, v in item.items() if k not in drop}
+    batch = {k: np.asarray(v)[None] for k, v in item.items() if k not in drop}
+    if fix_inp is not None:
+        batch["inp_pos_map"] = fix_inp[None]
+    return batch

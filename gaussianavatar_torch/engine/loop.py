@@ -1,17 +1,24 @@
-"""The stage-1 training loop (counterpart of gaussianavatar_tpu/engine/
-loop.py, lean): epochs over shuffled drop-last batches, the regulariser
-decay (x0.85 every 20 epochs), the pose-optimization and LPIPS epoch gates,
-the loss and it/s log at the first step of a run and every 10 steps
-(stdout and metrics.jsonl), checkpoints (`net/iteration_N/net_torch.pt`
-and `train_torch.pt`) at the save epochs and at the end, and resuming from
-one (`checkpoint_epochs`) with the JAX loop's semantics.
+"""The training loop (counterpart of gaussianavatar_tpu/engine/loop.py,
+lean), stage 1 and stage 2: epochs over shuffled drop-last batches, the
+regulariser decay (x0.85 every 20 epochs), the pose-optimization and LPIPS
+epoch gates, the loss and it/s log at the first step of a run and every 10
+steps (stdout and metrics.jsonl), checkpoints (`net/iteration_N/
+net_torch.pt` and `train_torch.pt`) at the save epochs and at the end, and
+resuming from one (`checkpoint_epochs`) with the JAX loop's semantics.
+
+Stage 2 boots from a stage-1 save (`stage1_out_path`, through
+`checkpoint.stage_load`) and keeps every training frame's input posmap on
+the device beside the GT bank (or the one `--fixed_inp` posmap). As in the
+JAX loop, `stage_load` runs after a resume, so a resumed stage-2 run takes
+the decoder, the geometry features and the embeddings from stage 1 again
+(`restore_state`).
 
 Left out, because the port does not need them: the TPU capacity machinery
 (need tables and their retunes, chunk budgets, cascade tiers, footprint
 adaptation; the port's blend walks every tile's whole range),
 `steps_per_dispatch` scans and `device_prefetch` (dispatch-latency work for
-the TPU's host link), and `--dp`. Left for later slices: stage 2, LPIPS and
-AIAP, and the periodic PNG/PLY debug dumps.
+the TPU's host link), and `--dp`. Left for later slices: LPIPS and AIAP,
+and the periodic PNG/PLY debug dumps.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import torch
 from gaussianavatar_torch.config import Config
 from gaussianavatar_torch.data.dataset import BatchLoader
 from gaussianavatar_torch.engine import checkpoint as ckpt
-from gaussianavatar_torch.engine.inference import require_device
+from gaussianavatar_torch.engine.inference import load_fixed_inp, require_device
 from gaussianavatar_torch.engine.logging_utils import MetricsLogger
 from gaussianavatar_torch.engine.optim import build_optimizer
 from gaussianavatar_torch.engine.setup import setup_avatar
@@ -59,6 +66,35 @@ def lpips_gate_value(lpips_active: bool, epoch: int, opt) -> float:
     return float(lpips_active and epoch > opt.lpips_start_iter)
 
 
+def restore_state(state: TrainState, mp, checkpoint_epochs: Sequence[int] = ()) -> int:
+    """Resume `state` from `model_path/net/iteration_E` (E =
+    checkpoint_epochs[0]) if asked, then, in stage 2, `stage_load` from
+    `mp.stage1_out_path`, in the JAX loop's order (so a resumed stage-2 run
+    takes pop, geo_feature and the embeddings from stage 1 again, ROADMAP
+    F10). -> the epoch training goes on from."""
+    epoch_start = 0
+    if checkpoint_epochs:
+        epoch_start = int(checkpoint_epochs[0])
+        ckpt.load_train_state(mp.model_path, epoch_start, state)
+        print(f"resumed from epoch {epoch_start} at iteration {state.iteration}")
+    if mp.train_stage == 2:
+        ckpt.stage_load(state.net, mp.stage1_out_path)
+        print(f"stage 2 boots from {mp.stage1_out_path}")
+    return epoch_start
+
+
+def input_posmap_bank(mp, dataset, device) -> torch.Tensor:
+    """Stage 2's input posmaps on the device, (n_frames, 3, F, F) float32,
+    gathered by pose_idx in the step; with `fixed_inp` the one canonical
+    posmap at the input resolution, (1, 3, F, F)."""
+    if mp.fixed_inp:
+        bank = load_fixed_inp(mp)[None]
+        print(f"fixed_inp: every frame takes the canonical posmap at {mp.inp_posmap_size}")
+    else:
+        bank = np.stack([dataset.inp_posmap(i) for i in range(len(dataset))])
+    return torch.as_tensor(bank, device=device)
+
+
 def train(
     cfg: Config,
     saving_epochs: Sequence[int],
@@ -67,7 +103,7 @@ def train(
     lpips_note: Optional[str] = None,
     checkpoint_epochs: Sequence[int] = (),
 ) -> TrainState:
-    """Train a stage-1 avatar from `cfg.model.source_path` into
+    """Train an avatar (stage `cfg.model.train_stage`) from `cfg.model.source_path` into
     `cfg.model.model_path`; stops once the iteration reaches `max_steps` if
     given. Returns the final state.
 
@@ -79,8 +115,6 @@ def train(
     and the optimizer's counts go on from the restored ones."""
     require_device(device)
     mp, opt = cfg.model, cfg.opt
-    if mp.train_stage != 1:
-        raise NotImplementedError("stage-2 training is not ported yet (a later slice of the port)")
     cfg.save(join(mp.model_path, "cfg_args.json"))
     logger = MetricsLogger(mp.model_path)
     try:
@@ -100,18 +134,16 @@ def train(
         dataset.drop_image_cache()
         print(f"GT bank on {device}: {len(dataset)} frames of {H}x{W}, "
               f"{gt_bank.numel() / 2**20:.0f} MB uint8")
+        inp_bank = input_posmap_bank(mp, dataset, device) if mp.train_stage == 2 else None
 
         net.train()
         state = TrainState(net, build_optimizer(net, opt, steps_per_epoch, mp.train_stage))
-        epoch_start = 0
-        if checkpoint_epochs:
-            epoch_start = int(checkpoint_epochs[0])
-            ckpt.load_train_state(mp.model_path, epoch_start, state)
-            print(f"resumed from epoch {epoch_start} at iteration {state.iteration}")
+        epoch_start = restore_state(state, mp, checkpoint_epochs)
         first_it = state.iteration + 1
         step = make_train_step(net, bundle.body_model, bundle.assets, opt, H, W, bg,
                                raster_config(cfg, train=True), gt_bank,
-                               train_stage=mp.train_stage, use_aiap=bool(opt.use_aiap))
+                               train_stage=mp.train_stage, use_aiap=bool(opt.use_aiap),
+                               inp_bank=inp_bank)
 
         ema_loss = 0.0
         t_start = time.time()

@@ -16,7 +16,12 @@ optax / JAX expression in the same order:
     group was touched. (torch.optim.SparseAdam keys on sparse indices
     instead.)
   - `build_optimizer`: the stage-1 groups, net Adam at lr_net (3e-3), geo
-    Adam at lr_geomfeat (5e-4), embeddings SparseAdam at lr_pose (5e-3).
+    Adam at lr_geomfeat (5e-4), embeddings SparseAdam at lr_pose (5e-3);
+    the stage-2 groups, net Adam at 0.1 x lr_net and pose_enc (the UNet
+    pose encoder) Adam at lr_net, both on the schedule. Stage 2 freezes
+    geo_feature and the embeddings (optax.set_to_zero in the JAX package:
+    no update and no state): the port leaves them out of every group and
+    turns their gradients off.
 
 Moments and counts stay on the parameters' device; nothing here waits for
 the device. Each optimizer's `state_dict()` holds its update count and its
@@ -167,22 +172,33 @@ def param_group(name: str) -> str:
         return "geo"
     if name in ("pose_embedding", "transl_embedding"):
         return "embed"
+    if name.startswith("pose_encoder."):
+        return "pose_enc"
     return "net"
 
 
 def build_optimizer(net: nn.Module, opt_cfg, steps_per_epoch: int,
                     train_stage: int = 1) -> GroupOptimizer:
-    """The stage-1 groups of AvatarModel.training_setup."""
-    if train_stage != 1:
-        raise NotImplementedError("the stage-2 optimizer groups are not ported yet (stage 2 "
-                                  "is a later slice of the port)")
+    """The groups of AvatarModel.training_setup for `train_stage`. In stage
+    2 the parameters of the frozen groups (geo, embed) get
+    requires_grad=False."""
     unit = getattr(opt_cfg, "sched_unit", "iteration")
     ms = [int(m) * (steps_per_epoch if unit == "epoch" else 1) for m in opt_cfg.sched_milestones]
-    named = {"net": {}, "geo": {}, "embed": {}}
+    named = {"net": {}, "geo": {}, "embed": {}, "pose_enc": {}}
     for name, p in net.named_parameters():
         named[param_group(name)][name] = p
+    if train_stage == 1:
+        return GroupOptimizer({
+            "net": Adam(named["net"], multistep_schedule(opt_cfg.lr_net, ms)),
+            "geo": Adam(named["geo"], multistep_schedule(opt_cfg.lr_geomfeat, ms)),
+            "embed": SparseAdam(named["embed"], getattr(opt_cfg, "lr_pose", 5e-3)),
+        })
+    if train_stage != 2:
+        raise ValueError(f"train_stage must be 1 or 2, got {train_stage}")
+    for group in ("geo", "embed"):
+        for p in named[group].values():
+            p.requires_grad_(False)
     return GroupOptimizer({
-        "net": Adam(named["net"], multistep_schedule(opt_cfg.lr_net, ms)),
-        "geo": Adam(named["geo"], multistep_schedule(opt_cfg.lr_geomfeat, ms)),
-        "embed": SparseAdam(named["embed"], getattr(opt_cfg, "lr_pose", 5e-3)),
+        "net": Adam(named["net"], multistep_schedule(opt_cfg.lr_net * 0.1, ms)),
+        "pose_enc": Adam(named["pose_enc"], multistep_schedule(opt_cfg.lr_net, ms)),
     })

@@ -1,6 +1,6 @@
 """From Config to runtime objects (counterpart of
 gaussianavatar_tpu/engine/setup.py): body model, avatar assets and the
-stage-1 network, on the caller's device. Two asset sources:
+network, on the caller's device. Two asset sources:
 
   1. the reference-preprocessed files if all present (query posmap npz,
      lbs map npy, canonical joint mats pth, uv face-id mask), or
@@ -10,7 +10,9 @@ stage-1 network, on the caller's device. Two asset sources:
 `dataset_type == "synthetic"` swaps the licensed SMPL files for the
 procedural body. With `train=True` the bundle's frame table is the training
 dataset (`MonoDatasetTrain`, whose first frame gives H and W); the pose and
-transl embeddings start from the split's smpl_parms either way.
+transl embeddings start from the split's smpl_parms either way (stage 2:
+smpl_parms_pred.pth). The network is the stage's: stage 2 adds the pose
+encoder.
 """
 
 from __future__ import annotations
@@ -62,6 +64,9 @@ def _load_reference_assets(mp, betas: np.ndarray, J: int, device) -> Optional[Av
 
 def setup_avatar(cfg: Config, device: str = "cuda", train: bool = False) -> AvatarBundle:
     mp, npar = cfg.model, cfg.net
+    if npar.pos_encoding:
+        raise NotImplementedError("--pos_encoding is not ported yet to gaussianavatar_torch "
+                                  "(ROADMAP Queue 1, optional terms)")
     frames = MonoDatasetTrain(mp) if train else FrameTable(mp)
     betas = np.asarray(frames.smpl_data["beta"], np.float32).reshape(-1)
 
@@ -99,9 +104,13 @@ def setup_avatar(cfg: Config, device: str = "cuda", train: bool = False) -> Avat
         num_frames=len(frames),
         pose_dim=frames.pose_data.shape[1],
         c_geom=npar.c_geom,
+        c_pose=npar.c_pose,
         inp_posmap_size=mp.inp_posmap_size,
         hsize=npar.hsize,
+        nf=npar.nf,
         geom_layer_type=npar.geom_layer_type or None,
+        up_mode=npar.up_mode,
+        use_dropout=bool(npar.use_dropout),
         train_stage=mp.train_stage,
         compute_dtype="bfloat16" if npar.bf16_decoder else "float32",
         pose_init=frames.pose_data,

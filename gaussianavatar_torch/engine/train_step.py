@@ -1,23 +1,29 @@
-"""The stage-1 train step (counterpart of make_train_step in
-gaussianavatar_tpu/engine/train_step.py):
+"""The train step (counterpart of make_train_step in
+gaussianavatar_tpu/engine/train_step.py), stage 1 and stage 2:
 
     GT from the uint8 bank on the device, indexed by pose_idx
-    -> embedding lookup -> POP decode ONCE in training mode (BatchNorm on
-       the statistics of that one copy, as the JAX dedup takes them), then
-       expanded to the batch
-    -> LBS + skinning -> scale warm-up at the step's iteration
+    -> embedding lookup
+    -> POP decode in training mode. Stage 1: ONCE (the decoder sees no
+       per-frame input; BatchNorm on the statistics of that one copy, as the
+       JAX dedup takes them), then expanded to the batch. Stage 2: the B
+       frames' input posmaps (from the posmap bank on the device, indexed
+       by pose_idx, or the one fixed posmap) through the UNet pose encoder,
+       B decodes, the decoder's BatchNorm statistics over all B x Nv points
+    -> LBS + skinning -> scale warm-up at the step's iteration (stage 1)
     -> rasterize (H-fwd; H-bwd on the way back)
-    -> loss = scale + offset + L1 * (1 - lambda_dssim)
-              + lambda_dssim * (1 - SSIM) + geo
+    -> loss, stage 1 = scale + offset + L1 * (1 - lambda_dssim)
+                       + lambda_dssim * (1 - SSIM) + geo;
+       stage 2 = offset + L1 * (1 - lambda_dssim) + lambda_dssim * (1 - SSIM)
+                 + lambda_pose * mean(pose_featmap^2)
     -> backward -> embedding gradients times the pose-optimization gate
     -> the optimizer groups (engine/optim.py).
 
 Where the JAX step returns a new state, this one updates `TrainState` in
 place: the network's parameters and BatchNorm statistics, the optimizer's
 moments, and the iteration counter. LPIPS and the AIAP regulariser are
-off in this slice of the port; asking for them raises. The stages open
-`train::*` and `render::*` profiler ranges (scripts/torch_train_profile.py
-reads them); each costs one `record_function` per step.
+not ported yet; asking for them raises. The stages open `train::*` and
+`render::*` profiler ranges (scripts/torch_train_profile.py reads them);
+each costs one `record_function` per step.
 """
 
 from __future__ import annotations
@@ -58,14 +64,18 @@ def make_train_step(
     train_stage: int = 1,
     lpips_fn: Optional[Callable] = None,
     use_aiap: bool = False,
+    inp_bank: Optional[torch.Tensor] = None,  # (n_frames | 1, 3, F, F) f32, stage 2
 ):
     """-> train_step(state, batch, w_rgl, pose_opt_gate, lpips_gate) ->
     (terms, images): one optimizer step on `batch` (numpy arrays keyed as
     the dataset's items, without the image). `terms` holds the loss terms,
     `total` and `raster_overflow` as detached scalars; the gates are floats,
-    0 or 1."""
-    if train_stage != 1:
-        raise NotImplementedError("stage-2 training is not ported yet (a later slice of the port)")
+    0 or 1. Stage 2 needs `inp_bank`: every training frame's input posmap,
+    or one row, the fixed posmap every frame takes."""
+    if train_stage not in (1, 2):
+        raise ValueError(f"train_stage must be 1 or 2, got {train_stage}")
+    if train_stage == 2 and inp_bank is None:
+        raise ValueError("stage 2 needs the input posmap bank (inp_bank)")
     if lpips_fn is not None or use_aiap:
         raise NotImplementedError(
             "LPIPS and AIAP are not in the port's train step yet: they come with the "
@@ -91,14 +101,20 @@ def make_train_step(
 
         with record_function("train::decode"):
             pose, transl = net.lookup(idx)
-            # the stage-1 decoder sees no per-frame input: decode once, expand
-            res, scales, shs = (x.expand(B, -1, -1) for x in net.decode(assets, 1))
+            if train_stage == 1:
+                # the stage-1 decoder sees no per-frame input: decode once, expand
+                res, scales, shs, _ = net.decode(assets, 1)
+                res, scales, shs = (x.expand(B, -1, -1) for x in (res, scales, shs))
+            else:
+                inp = inp_bank[idx * 0 if inp_bank.shape[0] == 1 else idx]
+                res, scales, shs, pose_featmap = net.decode(assets, B, inp)
         with record_function("render::pose_gaussians"):
             world = pose_gaussians(body_model, assets, pose, transl, res,
                                    rest_pose=b.get("rest_pose"))
         with record_function("render::attributes"):
+            # the scale warm-up is stage 1's only
             scales3, rotations, opacity = gaussian_attributes(
-                assets, scale_warmup(scales, iteration))
+                assets, scale_warmup(scales, iteration) if train_stage == 1 else scales)
         images, overflow = rasterize_views(
             world, shs, scales3, rotations, opacity,
             b["world_view_transform"], b["full_proj_transform"],
@@ -108,9 +124,16 @@ def make_train_step(
             l1 = (1.0 - opt_cfg.lambda_dssim) * l1_loss(images, gt)
             ssim_loss = opt_cfg.lambda_dssim * (1.0 - ssim(images, gt))
             offset_loss = w_rgl * torch.mean(res ** 2)
-            geo_loss = torch.mean(net.geo_feature ** 2)
-            scale_loss = opt_cfg.lambda_scale * torch.mean(scales3)
-            loss = scale_loss + offset_loss + l1 + ssim_loss + geo_loss
+            if train_stage == 1:
+                geo_loss = torch.mean(net.geo_feature ** 2)
+                scale_loss = opt_cfg.lambda_scale * torch.mean(scales3)
+                loss = scale_loss + offset_loss + l1 + ssim_loss + geo_loss
+                terms = dict(l1=l1, ssim=ssim_loss, scale=scale_loss, offset=offset_loss,
+                             geo=geo_loss)
+            else:
+                pose_loss = torch.mean(pose_featmap ** 2) * opt_cfg.lambda_pose
+                loss = offset_loss + l1 + ssim_loss + pose_loss
+                terms = dict(l1=l1, ssim=ssim_loss, offset=offset_loss, pose=pose_loss)
         with record_function("train::backward"):
             loss.backward()
 
@@ -121,8 +144,7 @@ def make_train_step(
                     p.grad.mul_(pose_opt_gate)
             state.optimizer.step()
         state.iteration = iteration
-        terms = dict(l1=l1, ssim=ssim_loss, scale=scale_loss, offset=offset_loss, geo=geo_loss,
-                     total=loss, raster_overflow=overflow.to(torch.float32))
+        terms.update(total=loss, raster_overflow=overflow.to(torch.float32))
         return {k: v.detach() for k, v in terms.items()}, images.detach()
 
     return train_step

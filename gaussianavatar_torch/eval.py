@@ -1,6 +1,7 @@
 """Evaluation CLI of the port (counterpart of the JAX package's eval.py):
-render the test split with a trained stage-1 avatar, 4 frames per render
-call, and report PSNR and SSIM per frame and their means.
+render the test split with a trained avatar (stage 1, or stage 2 from each
+frame's input posmap), 4 frames per render call, and report PSNR and SSIM
+per frame and their means.
 
     python -m gaussianavatar_torch.eval -m <out_path> [--epoch N] [--device cpu]
 
@@ -52,10 +53,13 @@ def main(argv=None):
     from PIL import Image
 
     from gaussianavatar_torch.data.dataset import MonoDatasetTest
-    from gaussianavatar_torch.engine.inference import batch_from_item, load_trained, make_renderer
+    from gaussianavatar_torch.engine.inference import (
+        batch_from_item, load_fixed_inp, load_trained, make_renderer,
+    )
     from gaussianavatar_torch.ops.ssim import psnr, ssim
 
     inf = load_trained(cfg, args.epoch, device=args.device)
+    fix_inp = load_fixed_inp(cfg.model)
     print(f"evaluating epoch {inf.epoch}")
     test_ds = MonoDatasetTest(cfg.model)
     H, W = test_ds.image_hw()
@@ -72,7 +76,7 @@ def main(argv=None):
     for start in range(0, n, EVAL_B):
         idxs = range(start, min(start + EVAL_B, n))
         items = [test_ds[i] for i in idxs]
-        singles = [batch_from_item(it) for it in items]
+        singles = [batch_from_item(it, fix_inp) for it in items]
         batch = {k: np.concatenate([s[k] for s in singles]) for k in singles[0]}
         t0 = time.perf_counter()
         imgs, overflow = render(batch)

@@ -1,12 +1,15 @@
-"""The avatar model (counterpart of gaussianavatar_tpu/models/avatar.py),
-stage 1: canonical-UV Gaussians + POP decoder + LBS re-posing.
+"""The avatar model (counterpart of gaussianavatar_tpu/models/avatar.py):
+canonical-UV Gaussians + POP decoder (+ the stage-2 pose encoder) + LBS
+re-posing.
 
   - `AvatarAssets` bundles the preprocessed body data: canonical query
     points of the valid UV pixels, their skinning weights, inverse canonical
     joint affines, valid-pixel indices, uv coordinates, betas.
     `build_avatar_assets` computes them from a body model and a UV atlas.
   - `AvatarNet` owns the learnables: the geometry feature tensor, the
-    per-frame pose/transl embeddings and the POP decoder.
+    per-frame pose/transl embeddings, the POP decoder and, in stage 2, the
+    UNet pose encoder that turns a frame's input posmap into a feature map
+    added to the geometry features.
   - `pose_gaussians`, `scale_warmup` and `gaussian_attributes` turn decoder
     outputs into posed world-space gaussians: opacity 1 (0 on padding),
     identity rotation, isotropic scale.
@@ -25,6 +28,7 @@ from torch import nn
 
 from gaussianavatar_torch.models import body as body_mod
 from gaussianavatar_torch.models.body import BodyModel
+from gaussianavatar_torch.models.layers import UnetNoCond5DS
 from gaussianavatar_torch.models.pop import POPDecoder
 from gaussianavatar_torch.ops.uv_raster import bary_interpolate, rasterize_uv_atlas, uv_coord_map
 
@@ -104,18 +108,24 @@ def build_avatar_assets(
 
 
 class AvatarNet(nn.Module):
-    """Stage-1 learnable state: geometry feature map + POP decoder +
-    per-frame pose/transl embeddings. `generator` seeds the geometry feature
-    init, 0.01 * N(0, 1) as in the JAX package."""
+    """Learnable state: geometry feature map + POP decoder + per-frame
+    pose/transl embeddings (+ the stage-2 pose encoder, fresh from its
+    initialisation: stage 2 copies the rest from stage 1). `generator`
+    seeds the geometry feature init, 0.01 * N(0, 1) as in the JAX package,
+    and the 'unet' smoother's dropout."""
 
     def __init__(
         self,
         num_frames: int,
         pose_dim: int,
         c_geom: int = 64,
+        c_pose: int = 64,
         inp_posmap_size: int = 128,
         hsize: int = 128,
+        nf: int = 32,
         geom_layer_type: Optional[str] = "conv",
+        up_mode: str = "upconv",
+        use_dropout: bool = False,
         train_stage: int = 1,
         compute_dtype: str = "float32",
         pose_init: Optional[np.ndarray] = None,
@@ -124,8 +134,8 @@ class AvatarNet(nn.Module):
         device: str = "cuda",
     ):
         super().__init__()
-        if train_stage != 1:
-            raise NotImplementedError("the port renders stage-1 avatars; stage 2 comes later")
+        if train_stage not in (1, 2):
+            raise ValueError(f"train_stage must be 1 or 2, got {train_stage}")
         F = inp_posmap_size
         geo = torch.randn((1, c_geom, F, F), generator=generator) * 0.01
         self.geo_feature = nn.Parameter(geo)
@@ -133,19 +143,29 @@ class AvatarNet(nn.Module):
         transl = np.zeros((num_frames, 3), np.float32) if transl_init is None else transl_init
         self.pose_embedding = nn.Parameter(torch.as_tensor(np.asarray(pose, np.float32)))
         self.transl_embedding = nn.Parameter(torch.as_tensor(np.asarray(transl, np.float32)))
-        self.pop = POPDecoder(c_geom=c_geom, geom_layer_type=geom_layer_type or None,
-                              hsize=hsize, compute_dtype=compute_dtype)
+        self.pop = POPDecoder(c_geom=c_geom, geom_layer_type=geom_layer_type or None, nf=nf,
+                              hsize=hsize, up_mode=up_mode, use_dropout=use_dropout,
+                              compute_dtype=compute_dtype, generator=generator)
+        # the input posmap is xyz: 3 channels
+        self.pose_encoder = (UnetNoCond5DS(3, c_pose, nf, up_mode, use_dropout=False)
+                             if train_stage == 2 else None)
         self.to(device)
 
     def lookup(self, idx: torch.Tensor):
         """Per-frame pose/transl embedding rows."""
         return self.pose_embedding[idx], self.transl_embedding[idx]
 
-    def decode(self, assets: AvatarAssets, batch_size: int):
-        """POP decoder -> per-point (offsets * 0.02, scales, colors)."""
+    def decode(self, assets: AvatarAssets, batch_size: int,
+               inp_posmap: Optional[torch.Tensor] = None):
+        """POP decoder -> per-point (offsets * 0.02, scales, colors,
+        pose_featmap). With `inp_posmap` (B, 3, F, F) the pose encoder's
+        feature map (B, c_pose, F, F) joins the geometry features (stage 2);
+        without it pose_featmap is None."""
         geom = self.geo_feature.expand(batch_size, -1, -1, -1)
-        offs, scales, shs = self.pop(geom, assets.uv_coords, assets.valid_idx, assets.query_res)
-        return offs * 0.02, scales, shs
+        pose_featmap = None if inp_posmap is None else self.pose_encoder(inp_posmap)
+        offs, scales, shs = self.pop(geom, assets.uv_coords, assets.valid_idx, assets.query_res,
+                                     pose_featmap=pose_featmap)
+        return offs * 0.02, scales, shs, pose_featmap
 
 
 def pose_gaussians(

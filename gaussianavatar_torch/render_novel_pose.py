@@ -1,6 +1,8 @@
-"""Novel-pose animation CLI of the port: drive a trained stage-1 avatar with an
+"""Novel-pose animation CLI of the port: drive a trained avatar with an
 external pose sequence (assets/test_pose by default: a static camera,
-1024x1024 frames), 4 frames per render call.
+1024x1024 frames), 4 frames per render call. A stage-2 avatar reads each
+pose's input posmap from the folder's inp_map/ (gen_pose_map_frames writes
+them), or takes its fixed posmap.
 
     python -m gaussianavatar_torch.render_novel_pose -m <out_path> --epoch 200
 
@@ -43,9 +45,12 @@ def main(argv=None):
     import torch
 
     from gaussianavatar_torch.data.dataset import MonoDatasetNovelPose
-    from gaussianavatar_torch.engine.inference import batch_from_item, load_trained, make_renderer
+    from gaussianavatar_torch.engine.inference import (
+        batch_from_item, load_fixed_inp, load_trained, make_renderer,
+    )
 
     inf = load_trained(cfg, args.epoch, device=args.device)
+    fix_inp = load_fixed_inp(cfg.model)
     ds = MonoDatasetNovelPose(cfg.model, height=args.image_size, width=args.image_size)
     render = make_renderer(inf, args.image_size, args.image_size)
 
@@ -58,7 +63,7 @@ def main(argv=None):
     for start in range(0, n, REN_B):
         idxs = list(range(start, min(start + REN_B, n)))
         pad = [idxs[-1]] * (REN_B - len(idxs))
-        singles = [batch_from_item(ds[i]) for i in idxs + pad]
+        singles = [batch_from_item(ds[i], fix_inp) for i in idxs + pad]
         batch = {k: np.concatenate([s[k] for s in singles]) for k in singles[0]}
         t0 = time.perf_counter()
         imgs = render(batch).cpu().numpy()  # the copy waits for the device

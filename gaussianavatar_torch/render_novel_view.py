@@ -1,6 +1,7 @@
 """Novel-view (bullet-time) CLI of the port (counterpart of the JAX
 package's render_novel_view.py): orbit the test split's camera around a
-fixed pose of a trained stage-1 avatar, 4 frames per render call.
+fixed pose of a trained avatar, 4 frames per render call (a stage-2
+avatar decodes the pose's input posmap, or its fixed posmap).
 
     python -m gaussianavatar_torch.render_novel_view -m <out_path> [--epoch N] \
         [--bullet_pose_list 112 217 755] [--frames 60] [--device cpu]
@@ -44,10 +45,13 @@ def main(argv=None):
     from PIL import Image
 
     from gaussianavatar_torch.data.dataset import MonoDatasetNovelView
-    from gaussianavatar_torch.engine.inference import batch_from_item, load_trained, make_renderer
+    from gaussianavatar_torch.engine.inference import (
+        batch_from_item, load_fixed_inp, load_trained, make_renderer,
+    )
     from gaussianavatar_torch.models import body as body_mod
 
     inf = load_trained(cfg, args.epoch, device=args.device)
+    fix_inp = load_fixed_inp(cfg.model)
     ds = MonoDatasetNovelView(cfg.model)
     H, W = ds.image_hw()
 
@@ -78,7 +82,7 @@ def main(argv=None):
         print(f"orbiting pose {pose_idx}: {args.frames} frames at {W}x{H}")
         for start in range(0, args.frames, REN_B):
             idxs = range(start, min(start + REN_B, args.frames))
-            singles = [batch_from_item(ds[i]) for i in idxs]
+            singles = [batch_from_item(ds[i], fix_inp) for i in idxs]
             batch = {k: np.concatenate([s[k] for s in singles]) for k in singles[0]}
             imgs = render(batch).cpu().numpy()
             for j, i in enumerate(idxs):

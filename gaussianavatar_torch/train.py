@@ -1,16 +1,23 @@
-"""Training CLI of the port, stage 1, with the flags of the JAX package's
-train.py (the port's `build_parser`, so `cfg_args.json` is the same):
+"""Training CLI of the port, stages 1 and 2, with the flags of the JAX
+package's train.py (the port's `build_parser`, so `cfg_args.json` is the
+same):
 
     python -m gaussianavatar_torch.train -s <data_path> -m <out_path> --train_stage 1
     python -m gaussianavatar_torch.train ... --device cpu --max_steps 30
     python -m gaussianavatar_torch.train ... --checkpoint_epochs 100   # resume
+    python -m gaussianavatar_torch.train -s <data_path> -m <out2> --train_stage 2 \
+        --stage1_out_path <out_path>/net/iteration_200 [--fixed_inp 1]
 
 Runs on the card unless `--device cpu` is given. `--checkpoint_epochs E`
 resumes from `<out_path>/net/iteration_E` at epoch E + 1 (network,
-optimizer state and iteration). `--start_checkpoint` is parsed and unused,
-as in the JAX train.py. Stage 2, `--dp` and `--profile_dir` are not ported
-yet and raise. LPIPS is not ported yet either: training runs as with
-`--no_lpips`, and metrics.jsonl says so.
+optimizer state and iteration). Stage 2 needs `smpl_parms_pred.pth` and the
+per-frame input posmaps in the dataset (`python -m
+gaussianavatar_torch.export_stage_1`, then `python -m
+gaussianavatar_torch.gen_pose_map_frames`), or with `--fixed_inp 1` the
+canonical posmap at the input resolution. `--start_checkpoint` is parsed
+and unused, as in the JAX train.py. `--pos_encoding 1`, `--dp` and
+`--profile_dir` are not ported yet and raise. LPIPS is not ported yet either: training runs as
+with `--no_lpips`, and metrics.jsonl says so.
 """
 
 import contextlib
@@ -43,7 +50,7 @@ def main(argv=None):
 
     cfg = extract_config(args)
     not_ported = [flag for flag, asked in (
-        ("--train_stage 2", cfg.model.train_stage != 1),
+        ("--pos_encoding 1", bool(cfg.net.pos_encoding)),
         ("--dp", args.dp != 1),
         ("--profile_dir", args.profile_dir is not None),
     ) if asked]

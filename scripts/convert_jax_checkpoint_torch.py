@@ -1,4 +1,4 @@
-"""Convert a JAX checkpoint of a stage-1 avatar into the PyTorch port's.
+"""Convert a JAX checkpoint of an avatar (stage 1 or 2) into the PyTorch port's.
 
 Reads `<model>/net/iteration_N/net.ckpt` through gaussianavatar_tpu and
 writes `net_torch.pt` (the port's AvatarNet state_dict) beside it, through

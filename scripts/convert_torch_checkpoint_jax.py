@@ -1,5 +1,5 @@
-"""Convert a checkpoint of the PyTorch port (a stage-1 avatar) into the JAX
-package's.
+"""Convert a checkpoint of the PyTorch port (an avatar of stage 1 or 2) into
+the JAX package's.
 
 Reads `<model>/net/iteration_N/net_torch.pt` and, where training left it,
 `train_torch.pt` (the optimizer's counts and moments and the iteration),

@@ -1,31 +1,40 @@
-"""The PyTorch port's stage-1 quality gate: train an avatar on the synthetic
-dataset with `python -m gaussianavatar_torch.train`, evaluate its saves with
+"""The PyTorch port's quality gate: train an avatar on the synthetic dataset
+with `python -m gaussianavatar_torch.train`, evaluate its saves with
 `python -m gaussianavatar_torch.eval`, and hold the held-out PSNR to the
-gates of scripts/quality_gate.py (whose stage-1 part this copies; it
-imports no JAX, so it runs where only the port is installed):
+gates of scripts/quality_gate.py (whose stage-1 and stage-2 parts this
+copies; it imports no JAX, so it runs where only the port is installed):
 
   1. the endpoint: PSNR of the final checkpoint >= --gate_psnr (41.0 dB at
      the canonical 512-query workload, 30 at the 256 fast gate);
   2. the tail mean: mean PSNR of the last 3 saves >= --gate_avg_psnr (41.5
      at 512, 30 at 256); averaging three late evals shrinks the endpoint's
-     trajectory chaos.
+     trajectory chaos;
+  3. with --stage2: export the stage-1 endpoint's poses (`python -m
+     gaussianavatar_torch.export_stage_1`), write the per-frame posmaps at
+     --inp (`python -m gaussianavatar_torch.gen_pose_map_frames`), train
+     stage 2 for epochs // 2 from the stage-1 endpoint, evaluate its end:
+     stage-2 PSNR >= the stage-1 final PSNR (the larger of the endpoint
+     and the parameter mean) - 1.0 dB at the canonical workload, - 1.5 dB
+     otherwise.
 
 The parameter mean of the last 3 saves ("SWA") is evaluated and recorded,
 not gated. The canonical campaign:
 
-    python scripts/torch_quality_gate.py --work output/torch_qg512 --query 512 --inp 128
+    python scripts/torch_quality_gate.py --work output/torch_qg512 --query 512 --inp 128 [--stage2]
 
 It writes <work>/curve.json (PSNR / SSIM per evaluated epoch),
-<work>/quality_summary.json (gates, curve, SWA) and <work>/wall.json
-(training wall clock, steps and it/s over the training runs, and the name
-and power limit of the card this invocation ran on), and exits nonzero
-when a gate fails. It is resumable: a run whose
-final checkpoint exists is not trained again, one without it resumes from
-the newest save that holds the optimizer state (`--checkpoint_epochs`), and
-epochs already evaluated are read from curve.json, so a campaign can span
-several processes or machines (carry <work> across). Stage 2 and the
-frozen-net pose-recovery probe of scripts/quality_gate.py wait for the
-port's stage 2.
+<work>/quality_summary.json (gates, curve, SWA, stage 2) and
+<work>/wall.json (training wall clock, steps and it/s over the training
+runs of each stage, and the name and power limit of the card this
+invocation ran on), and exits nonzero when a gate fails. It is resumable:
+a run whose final checkpoint exists is not trained again, one without it
+resumes from the newest save that holds the optimizer state
+(`--checkpoint_epochs`), and evaluations already made are read from
+curve.json and stage2_eval.json, so a campaign can span several processes
+or machines (carry <work> across). A resumed stage-2 run takes the
+decoder, geo_feature and the embeddings from stage 1 again, as the JAX
+loop does (ROADMAP F10), so keep the stage-2 leg in one process. The
+frozen-net pose-recovery probe of scripts/quality_gate.py is not ported.
 """
 
 import argparse
@@ -107,6 +116,8 @@ def main(argv=None):
     ap.add_argument("--train_flag", action="append", default=[],
                     help="extra training flag, repeatable, 'name=value' or bare 'name'")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--stage2", action="store_true",
+                    help="then the stage-2 leg: export, posmaps, epochs // 2 of stage 2, eval")
     args = ap.parse_args(argv)
     canonical = args.query >= 512
     if args.gate_psnr is None:
@@ -146,34 +157,40 @@ def main(argv=None):
     # curve evaluates the quarter points
     save_every = max(args.epochs // 8, 1)
 
-    def saved_epochs():
+    def saved_epochs(out, last):
         # training saves only: the averaged checkpoint is iteration_{epochs + 1}
-        net_dir = join(out1, "net")
+        net_dir = join(out, "net")
         if not os.path.isdir(net_dir):
             return []
         found = sorted(int(d.split("_")[1]) for d in os.listdir(net_dir)
                        if d.startswith("iteration_"))
-        return [e for e in found if e <= args.epochs and (e % save_every == 0 or e == args.epochs)]
+        return [e for e in found if e <= last and (e % save_every == 0 or e == last)]
 
-    wall_log = join(work, "train_runs.json")
-    runs = json.load(open(wall_log)) if os.path.exists(wall_log) else []
-    if args.epochs not in saved_epochs():
-        resume = ckpt.latest_epoch(out1, ckpt.TRAIN_NAME)
-        iteration_at = lambda e: int(torch.load(join(ckpt.ckpt_dir(out1, e), ckpt.TRAIN_NAME),
-                                                map_location="cpu", weights_only=True)["iteration"])
-        extra = ["--checkpoint_epochs", str(resume)] if resume is not None else []
-        start_it = iteration_at(resume) if resume is not None else 0
-        t0 = time.time()
-        sh(["-m", "gaussianavatar_torch.train", "-m", out1, *common, "--train_stage", "1",
-            "--epochs", str(args.epochs), "--save_epoch", str(save_every),
-            "--save_epochs", str(save_every - 1), *extra])
-        runs.append({"resumed_from_epoch": resume, "from_iteration": start_it,
-                     "to_iteration": iteration_at(args.epochs), "wall_s": time.time() - t0,
-                     "steady_it_per_sec": steady_rate(join(out1, "metrics.jsonl"), t0)})
-        with open(wall_log, "w") as f:
-            json.dump(runs, f, indent=1)
+    def train_to(out, last, log_name, argv):
+        """Train (or resume) `out` until its save of epoch `last` exists;
+        each run's wall clock and steps go to <work>/<log_name>."""
+        log = join(work, log_name)
+        runs = json.load(open(log)) if os.path.exists(log) else []
+        if last not in saved_epochs(out, last):
+            resume = ckpt.latest_epoch(out, ckpt.TRAIN_NAME)
+            iteration_at = lambda e: int(torch.load(join(ckpt.ckpt_dir(out, e), ckpt.TRAIN_NAME),
+                                                    map_location="cpu",
+                                                    weights_only=True)["iteration"])
+            extra = ["--checkpoint_epochs", str(resume)] if resume is not None else []
+            start_it = iteration_at(resume) if resume is not None else 0
+            t0 = time.time()
+            sh(["-m", "gaussianavatar_torch.train", "-m", out, *common, *argv,
+                "--epochs", str(last), "--save_epoch", str(save_every),
+                "--save_epochs", str(save_every - 1), *extra])
+            runs.append({"resumed_from_epoch": resume, "from_iteration": start_it,
+                         "to_iteration": iteration_at(last), "wall_s": time.time() - t0,
+                         "steady_it_per_sec": steady_rate(join(out, "metrics.jsonl"), t0)})
+            with open(log, "w") as f:
+                json.dump(runs, f, indent=1)
+        return runs
 
-    epochs = saved_epochs()
+    runs = train_to(out1, args.epochs, "train_runs.json", ["--train_stage", "1"])
+    epochs = saved_epochs(out1, args.epochs)
     curve_epochs = sorted({e for e in epochs if (e // save_every) % 2 == 0} | {epochs[-1]})
     curve_path = join(work, "curve.json")
     curve_cache = {}
@@ -228,13 +245,54 @@ def main(argv=None):
         print(f"[swa] parameter mean of {avg['epochs']}: PSNR {avg['psnr']:.2f} "
               f"SSIM {avg['ssim']:.4f}", flush=True)
         summary["swa_experiment"] = avg
+        final_psnr = max(final_psnr, avg["psnr"])
+
+    stage2_runs = []
+    if args.stage2:
+        out2 = join(work, "stage2")
+        ep2 = max(args.epochs // 2, 1)
+        stage1_end = ckpt.ckpt_dir(out1, epochs[-1])
+        if ep2 not in saved_epochs(out2, ep2):
+            dev = ["--device", args.device]
+            sh(["-m", "gaussianavatar_torch.export_stage_1", "-m", out1, "-s", data,
+                "--epoch", str(epochs[-1]), *dev])
+            sh(["-m", "gaussianavatar_torch.gen_pose_map_frames", "--source_path", data,
+                "--synthetic", "--size", str(args.inp), *dev])
+            if ckpt.latest_epoch(out2, ckpt.TRAIN_NAME) is not None:
+                print("[stage2] resuming: the decoder, geo_feature and the embeddings come "
+                      "from stage 1 again (ROADMAP F10)", flush=True)
+        stage2_runs = train_to(out2, ep2, "stage2_runs.json",
+                               ["--train_stage", "2", "--stage1_out_path", stage1_end])
+        s2_path = join(work, "stage2_eval.json")
+        if os.path.exists(s2_path):
+            s2 = json.load(open(s2_path))
+        else:
+            sh(["-m", "gaussianavatar_torch.eval", "-m", out2, "--epoch", str(ep2),
+                "--device", args.device])
+            p, s = read_psnr(out2)
+            s2 = {"epoch": ep2, "psnr": p, "ssim": s}
+            with open(s2_path, "w") as f:
+                json.dump(s2, f)
+        print(f"[stage2] epoch {ep2}: PSNR {s2['psnr']:.2f} SSIM {s2['ssim']:.4f}", flush=True)
+        # the margin of scripts/quality_gate.py: 1.0 dB at the canonical
+        # 512-query workload, 1.5 dB at the 256 fast gate
+        margin = 1.0 if canonical else 1.5
+        summary["stage2"] = s2
+        summary["gates"]["stage2_psnr"] = {
+            "value": s2["psnr"], "stage1_final": final_psnr, "gate": final_psnr - margin,
+            "pass": s2["psnr"] >= final_psnr - margin,
+        }
 
     # over the training runs of this work directory (a resumed campaign has several)
-    steps = sum(r["to_iteration"] - r["from_iteration"] for r in runs)
-    wall_s = sum(r["wall_s"] for r in runs)
-    wall = {"steps": steps, "wall_s": wall_s,
-            "wall_it_per_sec": steps / wall_s if wall_s else None,
-            "runs": runs, "card": card_of(args.device)}
+    def wall_of(rs):
+        steps = sum(r["to_iteration"] - r["from_iteration"] for r in rs)
+        wall_s = sum(r["wall_s"] for r in rs)
+        return {"steps": steps, "wall_s": wall_s,
+                "wall_it_per_sec": steps / wall_s if wall_s else None, "runs": rs}
+
+    wall = {**wall_of(runs), "card": card_of(args.device)}
+    if stage2_runs:
+        wall["stage2"] = wall_of(stage2_runs)
     with open(join(work, "wall.json"), "w") as f:
         json.dump(wall, f, indent=1)
 

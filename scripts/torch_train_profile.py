@@ -1,4 +1,5 @@
-"""Where the time of the port's stage-1 training step goes, on one card.
+"""Where the time of the port's training step (stage 1, or stage 2 with
+`--stage 2`) goes, on one card.
 
 Writes chip_smoke.py's training data (8 synthetic frames of 512^2 from the
 port's writer) into a temporary directory and runs the port's training CLI
@@ -10,9 +11,12 @@ optimizer, the whole step) and the `render::*` ranges the rasterizer opens
 way back blend_bwd and scatter_bwd). Steps after the first `--warmup` count.
 Per step it prints each stage's host time and the device time of the
 kernels launched in it, then the step's wall time, the device-busy share
-and the kernels by device time.
+and the kernels by device time. With `--stage 2` a stage-1 run of 10 steps
+first gives the stage-2 run its start (export, posmaps at 128), and the
+profiled run is `--train_stage 2` (c_pose 64, nf 32), as chip_smoke.py's
+phase 7.
 
-    python3 scripts/torch_train_profile.py [--steps 20] [--warmup 10]
+    python3 scripts/torch_train_profile.py [--steps 20] [--warmup 10] [--stage 2]
 """
 
 import argparse
@@ -32,13 +36,14 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--warmup", type=int, default=10)
+    ap.add_argument("--stage", type=int, default=1, choices=[1, 2])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_train_profile: needs CUDA", file=sys.stderr)
         return 2
     from torch_render_profile import range_times
 
-    from gaussianavatar_torch import train as train_cli
+    from gaussianavatar_torch import export_stage_1, gen_pose_map_frames, train as train_cli
     from gaussianavatar_torch.data.synthetic_writer import write_synthetic_dataset
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -47,9 +52,17 @@ def main():
     with tempfile.TemporaryDirectory(dir=REPO) as work:
         data, out = os.path.join(work, "data"), os.path.join(work, "out")
         write_synthetic_dataset(data, n_train=8, n_test=1, image_size=512, device="cuda")
-        argv = ["-s", data, "-m", out, "--train_stage", "1", "--dataset_type", "synthetic",
-                "--max_steps", str(args.warmup + args.steps), "--pose_op_start_iter", "0",
-                "--no_lpips", "--quiet"]
+        common = ["-s", data, "--dataset_type", "synthetic", "--pose_op_start_iter", "0",
+                  "--no_lpips", "--quiet"]
+        argv = ["-m", out, "--train_stage", "1", "--max_steps", str(args.warmup + args.steps)]
+        if args.stage == 2:
+            stage1 = os.path.join(work, "out_stage1")
+            train_cli.main(common + ["-m", stage1, "--max_steps", "10"])
+            export_stage_1.main(["-m", stage1, "-s", data])
+            gen_pose_map_frames.main(["--source_path", data, "--synthetic", "--size", "128"])
+            argv = ["-m", out, "--train_stage", "2", "--max_steps", str(args.warmup + args.steps),
+                    "--stage1_out_path", os.path.join(stage1, "net", "iteration_3")]
+        argv = common + argv
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             train_cli.main(argv)
@@ -65,7 +78,7 @@ def main():
         [e for e in events if e.time_range.start < until], ("train::", "render::"), since)
     wall_ms = (until - since) / 1e3
     busy_ms = sum(kernels.values())
-    print(f"stage-1 training, B=2 of 512x512, canonical widths, steps {args.warmup + 1}-"
+    print(f"stage-{args.stage} training, B=2 of 512x512, canonical widths, steps {args.warmup + 1}-"
           f"{args.warmup + n} under torch.profiler, per step, on {card}:")
     print(f"  {'range':26s} {'host ms':>9s} {'device ms':>10s}  (device: {how})")
     for name in sorted(host, key=lambda k: -dev[k]):

@@ -149,7 +149,8 @@ def test_avatar_decode_matches_jax(small_avatar, dtype, atol):
                      device="cpu").eval()
     tnet.load_state_dict(bridge.state_dict_from_jax(params, stats))
     with torch.no_grad():
-        res_t, scales_t, shs_t = tnet.decode(ta, 1)
+        res_t, scales_t, shs_t, pose_featmap = tnet.decode(ta, 1)
+    assert pose_featmap is None   # stage 1: no pose encoder
     # offsets are x0.02, so their tolerance scales with it
     np.testing.assert_allclose(_np(res_t), np.asarray(res_j), atol=0.02 * atol)
     np.testing.assert_allclose(_np(scales_t), np.asarray(scales_j), atol=atol)

@@ -51,3 +51,37 @@ def test_quality_gate_runs_and_resumes(tmp_path):
     assert runs[1]["resumed_from_epoch"] == 1
     assert (runs[1]["from_iteration"], runs[1]["to_iteration"]) == (1, 2)
     assert os.path.exists(join(work, "stage1", "net", "iteration_2", "train_torch.pt"))
+
+
+def test_quality_gate_stage2_leg(tmp_path):
+    """--stage2 on the CPU: the export, the posmaps at --inp, stage 2 for
+    epochs // 2 from the stage-1 endpoint, its eval and its gate against
+    the stage-1 final PSNR (the larger of the endpoint and the parameter
+    mean) - 1.5 dB off the canonical workload; a second run trains and
+    evaluates nothing again."""
+    sys.path.insert(0, join(REPO, "scripts"))
+    gate = importlib.import_module("torch_quality_gate")
+    work = str(tmp_path / "qg2")
+    argv = ["--work", work, "--epochs", "2", "--image_size", "32", "--n_train", "2",
+            "--n_test", "1", "--query", "32", "--inp", "32", "--gate_psnr", "0",
+            "--gate_avg_psnr", "0", "--device", "cpu", "--stage2"]
+    for flag in SMALL + ["c_pose=8", "nf=4"]:
+        argv += ["--train_flag", flag]
+    rc = gate.main(argv)
+    summary = json.load(open(join(work, "quality_summary.json")))
+    assert rc == (0 if summary["pass"] else 1)
+    g = summary["gates"]["stage2_psnr"]
+    final = max(summary["curve"][-1]["psnr"], summary["swa_experiment"]["psnr"])
+    assert g["stage1_final"] == final and abs(g["gate"] - (final - 1.5)) < 1e-9
+    assert g["value"] == summary["stage2"]["psnr"] and summary["stage2"]["epoch"] == 1
+    assert os.path.exists(join(work, "data", "train", "smpl_parms_pred.pth"))
+    assert os.path.exists(join(work, "data", "train", "inp_map", "inp_posemap_32_00000001.npz"))
+    saved = torch.load(join(work, "stage2", "net", "iteration_1", "train_torch.pt"),
+                       weights_only=True)
+    assert set(saved["optimizer"]) == {"net", "pose_enc"} and saved["iteration"] == 1
+    wall = json.load(open(join(work, "wall.json")))
+    assert wall["stage2"]["steps"] == 1 and len(wall["stage2"]["runs"]) == 1
+    metrics = open(join(work, "stage2", "metrics.jsonl")).read()
+    assert gate.main(argv) == rc
+    assert open(join(work, "stage2", "metrics.jsonl")).read() == metrics
+    assert len(json.load(open(join(work, "wall.json")))["stage2"]["runs"]) == 1

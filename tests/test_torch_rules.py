@@ -106,7 +106,10 @@ def test_backward_kernel_call_raises_instead_of_falling_back(monkeypatch):
 def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
     import inspect
 
-    from gaussianavatar_torch import eval as eval_cli, render_novel_pose, render_novel_view, train
+    from gaussianavatar_torch import (
+        eval as eval_cli, export_stage_1, gen_pose_map_frames, render_novel_pose,
+        render_novel_view, train,
+    )
     from gaussianavatar_torch.engine import inference, loop
 
     assert inspect.signature(inference.load_trained).parameters["device"].default == "cuda"
@@ -121,6 +124,10 @@ def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
             cli.main(["-m", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA device requested"):
         train.main(["-s", str(tmp_path), "-m", str(tmp_path / "out")])
+    for argv in ([export_stage_1, ["-m", str(tmp_path), "-s", str(tmp_path)]],
+                 [gen_pose_map_frames, ["--source_path", str(tmp_path), "--synthetic"]]):
+        with pytest.raises(RuntimeError, match="CUDA device requested"):
+            argv[0].main(argv[1])
 
 
 def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):

@@ -91,7 +91,7 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path):
     from gaussianavatar_torch import train
 
     base = ["-s", str(tmp_path), "-m", str(tmp_path / "out"), "--device", "cpu"]
-    for extra in (["--train_stage", "2"], ["--dp", "2"], ["--profile_dir", str(tmp_path)],
-                  ["--train_stage", "2", "--checkpoint_epochs", "10"]):
+    for extra in (["--pos_encoding", "1"], ["--dp", "2"], ["--profile_dir", str(tmp_path)],
+                  ["--train_stage", "2", "--dp", "2", "--checkpoint_epochs", "10"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train.main(base + extra)
