@@ -39,7 +39,23 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      last step's inputs of both held against their plain versions and
      timed beside their bounds; steady it/s, peak memory, pose_loss), eval
      of the 4 test frames (one H-fwd launch, frames/s) and 4 orbit frames
-     of novel view (one).
+     of novel view (one);
+  8. the rest of the user's pipeline on phase 5's data, through the users'
+     entry points, the launch counts read around each: (a) 30 stage-1
+     steps with the LPIPS term from the first step (random weights of the
+     exact layout from a seed under a project's assets/lpips; the `lpips`
+     event "active", `vgg` finite at every logged step, H-fwd and H-bwd
+     once per step and held against their plain versions on the last
+     step's batch, LPIPS on the card against LPIPS on the CPU, its time,
+     it/s and peak memory beside phase 5's), then eval with a numeric
+     `lpips:` line; (b) `gen_pose_map_cano --synthetic --sizes 512 128`
+     (the valid pixels at 512 are phase 5's gaussians) and
+     `sample_romp2gsavatar` on a ROMP capture made of phase 5's frames
+     (tree, 80/20 split, poses); (c) `render_pred_smpl --synthetic` over 8
+     frames of 512^2 with the 48 x 32 body (one H-fwd launch per frame,
+     the last frame's blend held against the plain version, frames/s);
+     (d) `export_avatar_ply` of phase 5's checkpoint at frame 0, read back
+     and held against the gaussians the renderer draws for that frame.
 It prints one JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {...}}. It needs CUDA and the repository around it.
 """
@@ -723,7 +739,8 @@ def phase_train(device, card, work):
 
     # the last step's own batch: both kernels against their plain versions, timed
     fwd_err, err, t = _hold_train_batch(recorder.rec, card, "train batch")
-    return fwd_err, {
+    stats = {"rate": rate, "peak_gb": peak_gb}
+    return fwd_err, stats, {
         "name": "blend_bwd", "route": "cuda",
         "source": "gaussianavatar_torch/csrc/blend_bwd.cu",
         "replaces": "gaussianavatar_tpu/ops/rasterize_ragged.py:405",
@@ -804,6 +821,245 @@ def phase_stage2(device, card, work):
     return fwd_err, bwd_err, total
 
 
+# LPIPS on the card against LPIPS on the CPU, on the same two images and
+# weights: the distance within this share of itself, the input gradient
+# within this share of its largest |value| (cuDNN and the CPU's convolutions
+# sum in other orders; TF32 is off)
+TOL_LPIPS_REL = 1e-4
+TOL_LPIPS_GRAD = 1e-3
+# the overlay's body: the campaign's synthetic body (scripts/torch_quality_gate.py)
+OVERLAY_BODY = {"n_rings": 48, "n_cols": 32}
+
+
+def _lpips_on_card_vs_cpu(proj, data, card):
+    """LPIPS from the project's weights, on the card and on the CPU, on two
+    training frames against two others (B=2 of 512^2 in [-1, 1]): the
+    distance and its gradient with respect to the first pair; then the
+    card's forward + backward and forward alone timed (CUDA events)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from gaussianavatar_torch.ops.lpips import try_load_lpips
+
+    frames = [np.asarray(Image.open(os.path.join(data, "train", "images", f"{i:08d}.png")),
+                         np.float32).transpose(2, 0, 1) / 127.5 - 1 for i in range(4)]
+    a, b = torch.tensor(np.stack(frames[:2])), torch.tensor(np.stack(frames[2:]))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        fn = try_load_lpips(proj, device=dev)
+        x = a.to(dev).requires_grad_(True)
+        val = fn(x, b.to(dev))
+        (grad,) = torch.autograd.grad(val, x)
+        out[dev] = (float(val.detach()), grad.cpu())
+    (v_k, g_k), (v_c, g_c) = out["cuda"], out["cpu"]
+    rel = abs(v_k - v_c) / abs(v_c)
+    g_err = float((g_k - g_c).abs().max() / g_c.abs().max())
+    print(f"  LPIPS on the card vs the CPU (B=2 of 512x512): distance {v_k:.7f} vs {v_c:.7f}, "
+          f"rel {rel:.2e} (tol {TOL_LPIPS_REL:g}); input gradient max|d| / max|grad| "
+          f"{g_err:.2e} (tol {TOL_LPIPS_GRAD:g})")
+    if not (math.isfinite(v_k) and v_c > 0) or rel > TOL_LPIPS_REL or g_err > TOL_LPIPS_GRAD:
+        _fail("LPIPS on the card disagrees with LPIPS on the CPU")
+    fn = try_load_lpips(proj, device="cuda")
+    x, y = a.cuda().requires_grad_(True), b.cuda()
+    ms = _time_ms(lambda: torch.autograd.grad(fn(x, y), x), reps=20)
+    fwd_ms = _time_ms(lambda: fn(x, y), reps=20)
+    print(f"  LPIPS (4 AlexNet forwards, the backward to the first pair) at B=2 of 512x512: "
+          f"{ms:.3f} ms forward + backward, {fwd_ms:.3f} ms forward (CUDA events), on {card}")
+
+
+def _romp_capture(data, romp):
+    """A ROMP / InstantAvatar capture of the dataset's 12 frames (train, then
+    test): images/ and masks/ as frame_NNNN.png, cameras.npz,
+    poses_optimized.npz. -> the capture's full poses (12, 72)."""
+    import shutil
+
+    import numpy as np
+
+    from gaussianavatar_torch.data.dataset import load_smpl_parms
+
+    os.makedirs(os.path.join(romp, "images"))
+    os.makedirs(os.path.join(romp, "masks"))
+    poses, transl, k = [], [], 0
+    for split in ("train", "test"):
+        d = os.path.join(data, split)
+        parms = load_smpl_parms(os.path.join(d, "smpl_parms.pth"))
+        for i, name in enumerate(sorted(os.listdir(os.path.join(d, "images")))):
+            for kind in ("images", "masks"):
+                shutil.copy(os.path.join(d, kind, name),
+                            os.path.join(romp, kind, f"frame_{k:04d}.png"))
+            poses.append(parms["body_pose"][i])
+            transl.append(parms["trans"][i])
+            k += 1
+        with np.load(os.path.join(d, "cam_parms.npz")) as cam:
+            np.savez(os.path.join(romp, "cameras.npz"), intrinsic=cam["intrinsic"],
+                     extrinsic=cam["extrinsic"])
+    poses = np.stack(poses).astype(np.float32)
+    np.savez(os.path.join(romp, "poses_optimized.npz"), global_orient=poses[:, :3],
+             body_pose=poses[:, 3:], transl=np.stack(transl).astype(np.float32),
+             betas=np.asarray(parms["beta"], np.float32).reshape(-1))
+    return poses
+
+
+def phase_pipeline(device, card, work, train_stats):
+    """Phase 8 on phase 5's data and checkpoint: LPIPS training and eval,
+    the PLY export, subject preprocessing and the SMPL overlay, through the
+    users' entry points. -> (H-fwd's error, H-bwd's error, launches)."""
+    import numpy as np
+    import torch
+
+    from gaussianavatar_torch import (
+        eval as eval_cli, export_avatar_ply, gen_pose_map_cano, render_pred_smpl,
+        sample_romp2gsavatar, train as train_cli,
+    )
+    from gaussianavatar_torch.config import Config
+    from gaussianavatar_torch.data.dataset import MonoDatasetTrain, load_smpl_parms
+    from gaussianavatar_torch.engine import inference
+    from gaussianavatar_torch.engine.export import load_gaussians_ply
+    from gaussianavatar_torch.ops.lpips import random_lpips_weights
+    from gaussianavatar_torch.ops.rasterize_tile import blend_tiles, blend_tiles_plain
+
+    data, out1 = os.path.join(work, "data"), os.path.join(work, "out")
+
+    # (a) LPIPS training and eval
+    proj, out = os.path.join(work, "lpips_proj"), os.path.join(work, "out_lpips")
+    os.makedirs(os.path.join(proj, "assets", "lpips"))
+    np.savez(os.path.join(proj, "assets", "lpips", "lpips_alex.npz"), **random_lpips_weights(0))
+    argv = [a for a in _train_argv(data, out) if a != "--no_lpips"] + [
+        "--lpips_start_iter", "0", "--project_path", proj, "--max_steps", str(TRAIN_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    with _KernelRecorder() as recorder:
+        _, counts, wall = _run_counted(train_cli.main, argv)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  kernel launches in the LPIPS training run: {counts} ({TRAIN_STEPS} steps)")
+    for name in TRAIN_KERNELS:
+        if counts[name] != TRAIN_STEPS:
+            _fail(f"the LPIPS run launched {name} {counts[name]} times, not once per step")
+    records = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    events = {r["event"]: r["value"] for r in records if "event" in r}
+    steps, rate = _train_rate(out, TRAIN_STEPS)
+    if events.get("lpips") != "active":
+        _fail(f"the LPIPS run's lpips event is {events.get('lpips')!r}, not 'active'")
+    if not all("vgg" in r and math.isfinite(r["vgg"]) and math.isfinite(r["total"])
+               for r in steps.values()):
+        _fail("the LPIPS run logged a step without a finite vgg term")
+    last = steps[TRAIN_STEPS]
+    print(f"  LPIPS training: {rate:.2f} it/s steady (steps 10-{TRAIN_STEPS}; phase 5 "
+          f"{train_stats['rate']:.2f}), peak memory {peak_gb:.2f} GiB (phase 5 "
+          f"{train_stats['peak_gb']:.2f}), loss {steps[1]['total']:.5f} at step 1 -> "
+          f"{last['total']:.5f} at step {TRAIN_STEPS}, vgg {steps[1]['vgg']:.5f} -> "
+          f"{last['vgg']:.5f}, {wall:.1f} s in all (setup included), on {card}")
+    fwd_err, bwd_err, _ = _hold_train_batch(recorder.rec, card, "LPIPS train batch")
+    _lpips_on_card_vs_cpu(proj, data, card)
+    result, eval_counts, wall = _run_counted(eval_cli.main, ["-m", out])
+    lp = result["lpips"]
+    print(f"  LPIPS eval: {result['frames']} test frames, PSNR {result['psnr']:.3f}, SSIM "
+          f"{result['ssim']:.5f}, LPIPS {lp} (random weights), launches {eval_counts}, "
+          f"{wall:.1f} s in all")
+    report = open(os.path.join(out, "test_free", "results.txt")).read()
+    if lp is None or not math.isfinite(lp) or f"lpips: {lp:.6f}\n" not in report \
+            or len(result["frame_lpips"]) != result["frames"]:
+        _fail("eval with LPIPS weights wrote no numeric lpips line")
+    if eval_counts["blend_fwd"] != -(-result["frames"] // eval_cli.EVAL_B):
+        _fail(f"the LPIPS eval launched {eval_counts}")
+
+    # (d) the PLY export of phase 5's checkpoint at frame 0, against the
+    # gaussians the renderer draws for that frame
+    ply = os.path.join(work, "avatar_frame0.ply")
+    _, exp_counts, exp_s = _run_counted(export_avatar_ply.main,
+                                        ["-m", out1, "--frame", "0", "--out", ply])
+    back = load_gaussians_ply(ply)
+    cfg = Config.load(os.path.join(out1, "cfg_args.json"))
+    inf = inference.load_trained(cfg, device=device)
+    nv = inf.bundle.assets.num_valid
+    item = MonoDatasetTrain(cfg.model)[0]
+    batch = inference.batch_from_item(item)
+    drawn = {}
+    real = inference.rasterize_views
+
+    def recording(*a, **kw):
+        drawn["args"] = a
+        return real(*a, **kw)
+
+    inference.rasterize_views = recording
+    try:
+        inference.make_renderer(inf, int(item["height"]), int(item["width"]))(batch)
+    finally:
+        inference.rasterize_views = real
+    means, colors, scales3, rots, opac = (x.cpu().numpy() for x in drawn["args"][:5])
+    errs = {
+        "means": float(np.abs(back["means"] - means[0, :nv]).max()),
+        "colors": float(np.abs(back["colors"] - colors[0, :nv]).max()),
+        "scales": float(np.abs(back["scales"] / scales3[0, :nv] - 1).max()),
+        "opacities": float(np.abs(back["opacities"]
+                                  - np.clip(opac[:nv], 1e-4, 1 - 1e-4)).max()),
+        "rotations": float(np.abs(back["rotations"] - rots[:nv]).max()),
+    }
+    tols = {"means": 1e-6, "colors": 1e-6, "scales": 1e-6, "opacities": 1e-6, "rotations": 0.0}
+    print(f"  export: {len(back['means'])} gaussians (num_valid {nv}) in {exp_s:.2f} s, "
+          f"launches {exp_counts}; PLY vs the render's gaussians: " + ", ".join(
+              f"{k} {v:.2e} (tol {tols[k]:g})" for k, v in errs.items()))
+    if len(back["means"]) != nv or any(errs[k] > tols[k] for k in errs):
+        _fail("the exported PLY does not hold the gaussians the renderer draws")
+
+    # (b) preprocessing: the canonical files, then a ROMP capture
+    prep = os.path.join(work, "prep_proj")
+    t0 = time.perf_counter()
+    gen_pose_map_cano.main(["--source_path", data, "--synthetic", "--sizes", "512", "128",
+                            "--project_path", prep])
+    cano_s = time.perf_counter() - t0
+    valid = {R: int((np.load(os.path.join(prep, "assets", "uv_masks",
+                                          f"uv_mask{R}_with_faceid_smpl.npy")) >= 0).sum())
+             for R in (512, 128)}
+    with np.load(os.path.join(data, "train", "query_posemap_512_cano_smpl.npz")) as f:
+        posmap_valid = int((f["posmap512"] != 0).any(-1).sum())
+    print(f"  gen_pose_map_cano: {cano_s:.2f} s, valid uv pixels {valid}, posmap 512 "
+          f"non-zero pixels {posmap_valid}; phase 5 trained {nv} gaussians")
+    if valid[512] != nv:
+        _fail("the canonical posmap's valid pixels are not phase 5's gaussians")
+    romp, conv = os.path.join(work, "romp"), os.path.join(work, "data_romp")
+    poses = _romp_capture(data, romp)
+    t0 = time.perf_counter()
+    sample_romp2gsavatar.main(["--input", romp, "--output", conv])
+    romp_s = time.perf_counter() - t0
+    split = {s: sorted(os.listdir(os.path.join(conv, s, "images"))) for s in ("train", "test")}
+    ok = split["train"] == [f"{i:08d}.png" for i in range(9)] \
+        and split["test"] == [f"{i:08d}.png" for i in range(3)]
+    for s, ids in (("train", range(9)), ("test", range(9, 12))):
+        parms = load_smpl_parms(os.path.join(conv, s, "smpl_parms.pth"))
+        ok &= np.array_equal(parms["body_pose"], poses[list(ids)])
+        ok &= sorted(os.listdir(os.path.join(conv, s, "masks"))) == split[s]
+        ok &= os.path.exists(os.path.join(conv, s, "cam_parms.npz"))
+    print(f"  sample_romp2gsavatar: 12 frames -> train {len(split['train'])}, test "
+          f"{len(split['test'])} in {romp_s:.2f} s")
+    if not ok:
+        _fail("sample_romp2gsavatar did not write the 80/20 tree with the capture's poses")
+
+    # (c) the SMPL overlay: 8 frames of 512^2, one H-fwd launch each
+    qa = os.path.join(work, "qa_overlay")
+    n_frames = 8
+    with _KernelRecorder() as recorder:
+        _, ov_counts, ov_s = _run_counted(
+            lambda: render_pred_smpl.main(["--source_path", data, "--synthetic", "--n_frames",
+                                           str(n_frames), "--out", qa], body_kwargs=OVERLAY_BODY))
+    pngs = sorted(os.listdir(qa))
+    print(f"  overlay: {len(pngs)} frames of 512x512 with the {OVERLAY_BODY} body in "
+          f"{ov_s:.2f} s ({n_frames / ov_s:.2f} frames/s, setup and PNG writes included), "
+          f"launches {ov_counts}, on {card}")
+    if pngs != [f"{i:05d}.png" for i in range(n_frames)] or ov_counts["blend_fwd"] != n_frames \
+            or ov_counts["blend_bwd"]:
+        _fail("the overlay did not write its frames through one H-fwd launch each")
+    rec = recorder.rec
+    args = tuple(a.detach() if torch.is_tensor(a) else a for a in rec["fwd_args"][:6])
+    caps = rec["fwd_kw"].get("caps")
+    ov_res = _compare(blend_tiles(*args, caps=caps), blend_tiles_plain(*args, caps=caps))
+    _check_blend("overlay frame, H-fwd", ov_res)
+
+    total = {name: counts[name] + eval_counts[name] + exp_counts[name] + ov_counts[name]
+             for name in counts}
+    return max(fwd_err, ov_res["color"], ov_res["T"]), bwd_err, total
+
+
 def main():
     try:
         import torch
@@ -830,18 +1086,22 @@ def main():
     phase_bwd_random_scene(device, card)
     print("phase 5: stage-1 training, canonical widths")
     with tempfile.TemporaryDirectory(dir=REPO) as work:
-        train_fwd_err, bwd, train_counts = phase_train(device, card, work)
+        train_fwd_err, train_stats, bwd, train_counts = phase_train(device, card, work)
         print("phase 6: resume, eval and novel view on phase 5's output")
         rest_counts = phase_rest_of_path(card, work)
         print("phase 7: stage 2 on phase 6's output: export, posmaps, training, eval, novel view")
         s2_fwd_err, s2_bwd_err, s2_counts = phase_stage2(device, card, work)
+        print("phase 8: the rest of the pipeline on phase 5's data: LPIPS training and eval, "
+              "preprocessing, the SMPL overlay, the PLY export")
+        p8_fwd_err, p8_bwd_err, p8_counts = phase_pipeline(device, card, work, train_stats)
     # launches: each main path's run, added (the render's H-fwd, training's,
-    # then the resumed run's, eval's and the novel view's, then stage 2's)
+    # then the resumed run's, eval's and the novel view's, then stage 2's,
+    # then phase 8's)
     fwd["launches"] += (train_counts["blend_fwd"] + rest_counts["blend_fwd"]
-                        + s2_counts["blend_fwd"])
-    bwd["launches"] += rest_counts["blend_bwd"] + s2_counts["blend_bwd"]
-    fwd["max_abs_err"] = max(fwd["max_abs_err"], train_fwd_err, s2_fwd_err)
-    bwd["max_abs_err"] = max(bwd["max_abs_err"], s2_bwd_err)
+                        + s2_counts["blend_fwd"] + p8_counts["blend_fwd"])
+    bwd["launches"] += rest_counts["blend_bwd"] + s2_counts["blend_bwd"] + p8_counts["blend_bwd"]
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], train_fwd_err, s2_fwd_err, p8_fwd_err)
+    bwd["max_abs_err"] = max(bwd["max_abs_err"], s2_bwd_err, p8_bwd_err)
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [fwd, bwd]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

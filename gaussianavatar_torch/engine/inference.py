@@ -8,7 +8,9 @@ input, so its outputs are decoded once (`precompute_canonical`) and every
 frame runs only LBS -> skinning -> projection -> binning -> the blend.
 Stage-2 models decode every frame: its input posmap (`inp_pos_map` in the
 batch, NCHW) goes through the pose encoder and the decoder in eval mode, B
-frames per call, then the same render.
+frames per call, then the same render. `frame_gaussians` hands out what
+the renderer draws (the PLY export reads it), through the same
+`decode_batch` and `posed_gaussians` the render calls.
 """
 
 from __future__ import annotations
@@ -75,12 +77,27 @@ def _to_device(batch: dict, device) -> dict:
     return out
 
 
-def _render_posed(net, body_model, assets, res, scales, shs, batch, H, W, bg,
-                  raster_cfg, iteration):
-    """Decoded gaussians (B, Nv, ...) + a batch of B poses/cameras ->
-    ((B, 3, H, W), overflow)."""
+def decode_batch(net: AvatarNet, assets: AvatarAssets, batch: dict):
+    """The decode for a batch of B frames (tensors on the device), in the
+    network's current mode -> (res, scales, shs), each (B, Nv, ...). With
+    `inp_pos_map` (B, 3, F, F) each frame decodes from its posmap (stage
+    2); without, the decoder runs once and its output is expanded."""
+    B = batch["pose_idx"].reshape(-1).shape[0]
+    inp = batch.get("inp_pos_map")
+    res, scales, shs, _ = net.decode(assets, 1 if inp is None else B, inp)
+    if inp is None:
+        res, scales, shs = (x.expand(B, -1, -1) for x in (res, scales, shs))
+    return res, scales, shs
+
+
+def posed_gaussians(net, body_model, assets, res, scales, shs, batch, iteration):
+    """Decoded gaussians (B, Nv, ...) + a batch of B poses and cameras
+    (tensors on the device) -> the gaussians the renderer draws: world
+    means (B, Nv, 3), colours (B, Nv, 3), scales (B, Nv, 3), rotations
+    (Nv, 4) wxyz and opacities (Nv,), padding included (opacity 0). Poses
+    come from the batch's `pose_data` / `transl_data` if it has them, else
+    from the trained embeddings."""
     idx = batch["pose_idx"].long().reshape(-1)
-    B = idx.shape[0]
     if "pose_data" in batch:
         pose, transl = batch["pose_data"], batch["transl_data"]
     else:
@@ -90,8 +107,18 @@ def _render_posed(net, body_model, assets, res, scales, shs, batch, H, W, bg,
                                rest_pose=batch.get("rest_pose"))
     with record_function("render::attributes"):
         scales3, rotations, opacity = gaussian_attributes(assets, scale_warmup(scales, iteration))
+    return world, shs, scales3, rotations, opacity
+
+
+def _render_posed(net, body_model, assets, res, scales, shs, batch, H, W, bg,
+                  raster_cfg, iteration):
+    """Decoded gaussians (B, Nv, ...) + a batch of B poses/cameras ->
+    ((B, 3, H, W), overflow)."""
+    world, colors, scales3, rotations, opacity = posed_gaussians(
+        net, body_model, assets, res, scales, shs, batch, iteration)
+    B = world.shape[0]
     return rasterize_views(
-        world, shs, scales3, rotations, opacity,
+        world, colors, scales3, rotations, opacity,
         batch["world_view_transform"], batch["full_proj_transform"],
         batch["tan_fovx"].reshape(B), batch["tan_fovy"].reshape(B), H, W, bg,
         config=raster_cfg,
@@ -138,11 +165,7 @@ def make_render_fn(net: AvatarNet, body_model: BodyModel, assets: AvatarAssets,
     @torch.no_grad()
     def render(batch, iteration: int = INFERENCE_ITERATION):
         b = _to_device(batch, device)
-        B = b["pose_idx"].reshape(-1).shape[0]
-        inp = b.get("inp_pos_map")
-        res, scales, shs, _ = net.decode(assets, 1 if inp is None else B, inp)
-        if inp is None:
-            res, scales, shs = (x.expand(B, -1, -1) for x in (res, scales, shs))
+        res, scales, shs = decode_batch(net, assets, b)
         out = _render_posed(net, body_model, assets, res, scales, shs, b, H, W, bg,
                             raster_cfg, iteration)
         return out if with_overflow else out[0]
@@ -169,6 +192,19 @@ def make_renderer(inf: InferenceBundle, height: int, width: int,
         return cached(cache, batch, iteration)
 
     return render
+
+
+@torch.no_grad()
+def frame_gaussians(bundle: AvatarBundle, batch: dict, iteration: int = INFERENCE_ITERATION):
+    """The posed gaussians the renderer draws for a batch (arrays or
+    tensors, as `batch_from_item` makes it), in the network's current mode:
+    `posed_gaussians` of the stage's decode (stage 1 once; stage 2 from the
+    batch's `inp_pos_map`, or with no pose feature map when the batch has
+    none)."""
+    b = _to_device(batch, bundle.assets.query_points.device)
+    res, scales, shs = decode_batch(bundle.net, bundle.assets, b)
+    return posed_gaussians(bundle.net, bundle.body_model, bundle.assets, res, scales, shs, b,
+                           iteration)
 
 
 def load_fixed_inp(mp) -> Optional[np.ndarray]:

@@ -2,27 +2,30 @@
 lean), stage 1 and stage 2: epochs over shuffled drop-last batches, the
 regulariser decay (x0.85 every 20 epochs), the pose-optimization and LPIPS
 epoch gates, the loss and it/s log at the first step of a run and every 10
-steps (stdout and metrics.jsonl), checkpoints (`net/iteration_N/
-net_torch.pt` and `train_torch.pt`) at the save epochs and at the end, and
-resuming from one (`checkpoint_epochs`) with the JAX loop's semantics.
+steps (stdout and metrics.jsonl), the debug dumps every `log_iter` steps
+from the first (`log/NNNNN_pred.png` and `_gt.png`, the batch's renders and
+GT side by side, and `log/pred_NNNNN.ply`, the first frame's posed points
+in eval mode), checkpoints (`net/iteration_N/net_torch.pt` and
+`train_torch.pt`) at the save epochs and at the end, and resuming from one
+(`checkpoint_epochs`) with the JAX loop's semantics.
 
 Stage 2 boots from a stage-1 save (`stage1_out_path`, through
 `checkpoint.stage_load`) and keeps every training frame's input posmap on
 the device beside the GT bank (or the one `--fixed_inp` posmap). As in the
 JAX loop, `stage_load` runs after a resume, so a resumed stage-2 run takes
 the decoder, the geometry features and the embeddings from stage 1 again
-(`restore_state`).
+(`restore_state`, which says so when it happens).
 
 Left out, because the port does not need them: the TPU capacity machinery
 (need tables and their retunes, chunk budgets, cascade tiers, footprint
 adaptation; the port's blend walks every tile's whole range),
 `steps_per_dispatch` scans and `device_prefetch` (dispatch-latency work for
-the TPU's host link), and `--dp`. Left for later slices: LPIPS and AIAP,
-and the periodic PNG/PLY debug dumps.
+the TPU's host link), and `--dp`. Left for a later slice: AIAP.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from os.path import join
 from typing import Optional, Sequence
@@ -33,12 +36,14 @@ import torch
 from gaussianavatar_torch.config import Config
 from gaussianavatar_torch.data.dataset import BatchLoader
 from gaussianavatar_torch.engine import checkpoint as ckpt
-from gaussianavatar_torch.engine.inference import load_fixed_inp, require_device
+from gaussianavatar_torch.engine.inference import frame_gaussians, load_fixed_inp, require_device
 from gaussianavatar_torch.engine.logging_utils import MetricsLogger
 from gaussianavatar_torch.engine.optim import build_optimizer
 from gaussianavatar_torch.engine.setup import setup_avatar
 from gaussianavatar_torch.engine.train_step import TrainState, make_train_step
+from gaussianavatar_torch.ops.lpips import lpips_status
 from gaussianavatar_torch.ops.rasterize import raster_config
+from gaussianavatar_torch.utils.obj_io import save_ply_points
 
 # per-item keys the step does not read
 _DROP_KEYS = {"FovX", "FovY", "height", "width", "projection_matrix", "camera_center"}
@@ -61,8 +66,8 @@ def pose_opt_gate_value(train_stage: int, epoch: int, opt) -> float:
 
 
 def lpips_gate_value(lpips_active: bool, epoch: int, opt) -> float:
-    """The LPIPS term joins after lpips_start_iter epochs; 0 while LPIPS is
-    not ported."""
+    """The 0.2 * LPIPS term joins the loss after lpips_start_iter epochs
+    (the reference's `if epoch > 30`)."""
     return float(lpips_active and epoch > opt.lpips_start_iter)
 
 
@@ -71,13 +76,17 @@ def restore_state(state: TrainState, mp, checkpoint_epochs: Sequence[int] = ()) 
     checkpoint_epochs[0]) if asked, then, in stage 2, `stage_load` from
     `mp.stage1_out_path`, in the JAX loop's order (so a resumed stage-2 run
     takes pop, geo_feature and the embeddings from stage 1 again, ROADMAP
-    F10). -> the epoch training goes on from."""
+    F10; a line says so). -> the epoch training goes on from."""
     epoch_start = 0
     if checkpoint_epochs:
         epoch_start = int(checkpoint_epochs[0])
         ckpt.load_train_state(mp.model_path, epoch_start, state)
         print(f"resumed from epoch {epoch_start} at iteration {state.iteration}")
     if mp.train_stage == 2:
+        if checkpoint_epochs:
+            print(f"warning: resuming stage 2 from epoch {epoch_start}: pop, geo_feature and "
+                  f"the embeddings come from stage 1 again ({mp.stage1_out_path}), as in the "
+                  "JAX loop; the resumed decoder is replaced (ROADMAP F10)")
         ckpt.stage_load(state.net, mp.stage1_out_path)
         print(f"stage 2 boots from {mp.stage1_out_path}")
     return epoch_start
@@ -95,6 +104,33 @@ def input_posmap_bank(mp, dataset, device) -> torch.Tensor:
     return torch.as_tensor(bank, device=device)
 
 
+def save_image_grid(path: str, images: np.ndarray):
+    """(B, 3, H, W) in [0,1] -> horizontal grid PNG."""
+    from PIL import Image
+
+    arr = np.clip(np.asarray(images), 0, 1)
+    arr = (arr.transpose(0, 2, 3, 1) * 255).astype(np.uint8)
+    grid = np.concatenate(list(arr), axis=1)
+    Image.fromarray(grid).save(path)
+
+
+def debug_points(bundle, feed: dict, inp_bank: Optional[torch.Tensor]) -> np.ndarray:
+    """The first frame of a training batch, posed from the network in eval
+    mode at the inference iteration -> its valid points (Nv, 3) (the JAX
+    loop's `make_debug_points_fn`)."""
+    batch = dict(feed)
+    if inp_bank is not None:
+        idx = torch.as_tensor(feed["pose_idx"], device=inp_bank.device).long()
+        batch["inp_pos_map"] = inp_bank[idx * 0 if inp_bank.shape[0] == 1 else idx]
+    mode = bundle.net.training
+    bundle.net.eval()
+    try:
+        world = frame_gaussians(bundle, batch)[0]
+    finally:
+        bundle.net.train(mode)
+    return world[0, :bundle.assets.num_valid].cpu().numpy()
+
+
 def train(
     cfg: Config,
     saving_epochs: Sequence[int],
@@ -102,6 +138,7 @@ def train(
     max_steps: Optional[int] = None,
     lpips_note: Optional[str] = None,
     checkpoint_epochs: Sequence[int] = (),
+    lpips_fn=None,
 ) -> TrainState:
     """Train an avatar (stage `cfg.model.train_stage`) from `cfg.model.source_path` into
     `cfg.model.model_path`; stops once the iteration reaches `max_steps` if
@@ -112,13 +149,21 @@ def train(
     iteration) at epoch E + 1, as the JAX loop does: the regulariser decay
     counts from E (the JAX loop's `adjust_loss_weights(..., epoch_start)`),
     the shuffle starts again from its seed, and the learning-rate schedule
-    and the optimizer's counts go on from the restored ones."""
+    and the optimizer's counts go on from the restored ones.
+
+    `lpips_fn` (ops/lpips.LPIPS on `device`) adds the gated LPIPS term; the
+    `lpips` event of metrics.jsonl reads "active" with it, else
+    `lpips_note` if given, else `lpips_status` of the project."""
     require_device(device)
     mp, opt = cfg.model, cfg.opt
+    os.makedirs(join(mp.model_path, "log"), exist_ok=True)
     cfg.save(join(mp.model_path, "cfg_args.json"))
     logger = MetricsLogger(mp.model_path)
     try:
-        logger.log_event("lpips", lpips_note or "not ported yet: training runs as with --no_lpips")
+        # "active" only when the term is in the loss; a caller's note (e.g.
+        # "disabled (--no_lpips)") wins over probing the files again
+        logger.log_event("lpips", "active" if lpips_fn is not None
+                         else (lpips_note or lpips_status(mp.project_path)))
 
         bundle = setup_avatar(cfg, device=device, train=True)
         dataset, net = bundle.frames, bundle.net
@@ -142,8 +187,8 @@ def train(
         first_it = state.iteration + 1
         step = make_train_step(net, bundle.body_model, bundle.assets, opt, H, W, bg,
                                raster_config(cfg, train=True), gt_bank,
-                               train_stage=mp.train_stage, use_aiap=bool(opt.use_aiap),
-                               inp_bank=inp_bank)
+                               train_stage=mp.train_stage, lpips_fn=lpips_fn,
+                               use_aiap=bool(opt.use_aiap), inp_bank=inp_bank)
 
         ema_loss = 0.0
         t_start = time.time()
@@ -152,11 +197,20 @@ def train(
         for epoch in range(epoch_start + 1, opt.epochs + 1):
             w_rgl = adjust_loss_weights(opt.lambda_rgl, epoch, "decay", epoch_start, 20)
             pose_gate = pose_opt_gate_value(mp.train_stage, epoch, opt)
-            lpips_gate = lpips_gate_value(False, epoch, opt)
+            lpips_gate = lpips_gate_value(lpips_fn is not None, epoch, opt)
             for batch in loader:
                 feed = {k: v for k, v in batch.items() if k not in _DROP_KEYS}
-                terms, _ = step(state, feed, w_rgl, pose_gate, lpips_gate)
+                terms, images = step(state, feed, w_rgl, pose_gate, lpips_gate)
                 it = state.iteration
+                if (it - 1) % opt.log_iter == 0:
+                    # the debug dumps (before the clock starts, so it/s leaves them out)
+                    log_dir = join(mp.model_path, "log")
+                    save_image_grid(join(log_dir, f"{it:05d}_pred.png"), images.cpu().numpy())
+                    idx = torch.as_tensor(feed["pose_idx"], device=gt_bank.device).long()
+                    save_image_grid(join(log_dir, f"{it:05d}_gt.png"),
+                                    (gt_bank[idx].float() / 255.0).cpu().numpy())
+                    save_ply_points(join(log_dir, f"pred_{it:05d}.ply"),
+                                    debug_points(bundle, feed, inp_bank))
                 if it == first_it:
                     # it/s leaves out the run's first step (kernel builds,
                     # allocator warm-up)

@@ -14,14 +14,16 @@ gaussianavatar_tpu/engine/train_step.py), stage 1 and stage 2:
     -> loss, stage 1 = scale + offset + L1 * (1 - lambda_dssim)
                        + lambda_dssim * (1 - SSIM) + geo;
        stage 2 = offset + L1 * (1 - lambda_dssim) + lambda_dssim * (1 - SSIM)
-                 + lambda_pose * mean(pose_featmap^2)
+                 + lambda_pose * mean(pose_featmap^2);
+       with LPIPS weights, + lpips_gate * lambda_lpips * LPIPS(images, GT)
+       (both mapped to [-1, 1]; logged as `vgg` whatever the gate)
     -> backward -> embedding gradients times the pose-optimization gate
     -> the optimizer groups (engine/optim.py).
 
 Where the JAX step returns a new state, this one updates `TrainState` in
 place: the network's parameters and BatchNorm statistics, the optimizer's
-moments, and the iteration counter. LPIPS and the AIAP regulariser are
-not ported yet; asking for them raises. The stages open `train::*` and
+moments, and the iteration counter. The AIAP regulariser is not ported
+yet; asking for it raises. The stages open `train::*` and
 `render::*` profiler ranges (scripts/torch_train_profile.py reads them);
 each costs one `record_function` per step.
 """
@@ -62,7 +64,7 @@ def make_train_step(
     raster_cfg: RasterizeConfig,
     gt_bank: torch.Tensor,           # (n_frames, 3, H, W) uint8 on the device
     train_stage: int = 1,
-    lpips_fn: Optional[Callable] = None,
+    lpips_fn: Optional[Callable] = None,   # ops/lpips.LPIPS on the device, or None
     use_aiap: bool = False,
     inp_bank: Optional[torch.Tensor] = None,  # (n_frames | 1, 3, F, F) f32, stage 2
 ):
@@ -76,11 +78,10 @@ def make_train_step(
         raise ValueError(f"train_stage must be 1 or 2, got {train_stage}")
     if train_stage == 2 and inp_bank is None:
         raise ValueError("stage 2 needs the input posmap bank (inp_bank)")
-    if lpips_fn is not None or use_aiap:
+    if use_aiap:
         raise NotImplementedError(
-            "LPIPS and AIAP are not in the port's train step yet: they come with the "
-            "optional-terms slice (ROADMAP Queue 1, after eval and the campaign); "
-            "train with --no_lpips and without --use_aiap")
+            "AIAP is not in the port's train step yet: it comes with the optional-terms "
+            "slice (ROADMAP Queue 1); train without --use_aiap")
     device = assets.query_points.device
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=device)
     embeddings = (net.pose_embedding, net.transl_embedding)
@@ -88,9 +89,9 @@ def make_train_step(
     def train_step(state: TrainState, batch: dict, w_rgl: float, pose_opt_gate: float,
                    lpips_gate: float = 0.0):
         with record_function("train::step"):
-            return _step(state, batch, w_rgl, pose_opt_gate)
+            return _step(state, batch, w_rgl, pose_opt_gate, lpips_gate)
 
-    def _step(state, batch, w_rgl, pose_opt_gate):
+    def _step(state, batch, w_rgl, pose_opt_gate, lpips_gate):
         iteration = state.iteration + 1
         b = _to_device(batch, device)
         idx = b["pose_idx"].long().reshape(-1)
@@ -134,6 +135,14 @@ def make_train_step(
                 pose_loss = torch.mean(pose_featmap ** 2) * opt_cfg.lambda_pose
                 loss = offset_loss + l1 + ssim_loss + pose_loss
                 terms = dict(l1=l1, ssim=ssim_loss, offset=offset_loss, pose=pose_loss)
+        if lpips_fn is not None:
+            with record_function("train::lpips"):
+                # at gate 0 the term is only logged: it leaves no gradient
+                with torch.set_grad_enabled(lpips_gate != 0.0):
+                    vgg = opt_cfg.lambda_lpips * lpips_fn((images - 0.5) * 2, (gt - 0.5) * 2)
+                if lpips_gate != 0.0:
+                    loss = loss + lpips_gate * vgg
+                terms["vgg"] = vgg
         with record_function("train::backward"):
             loss.backward()
 

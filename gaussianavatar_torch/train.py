@@ -16,8 +16,13 @@ gaussianavatar_torch.export_stage_1`, then `python -m
 gaussianavatar_torch.gen_pose_map_frames`), or with `--fixed_inp 1` the
 canonical posmap at the input resolution. `--start_checkpoint` is parsed
 and unused, as in the JAX train.py. `--pos_encoding 1`, `--dp` and
-`--profile_dir` are not ported yet and raise. LPIPS is not ported yet either: training runs as
-with `--no_lpips`, and metrics.jsonl says so.
+`--profile_dir` are not ported yet and raise.
+
+LPIPS: with weights under `<project_path>/assets/lpips/` (or the
+repository's), `lpips_alex.npz` or the raw `alexnet*.pth` + `alex.pth` pair
+(ops/lpips.try_load_lpips), the loss gains 0.2 * LPIPS after
+`--lpips_start_iter` epochs (30); `--no_lpips` turns it off. metrics.jsonl
+records which (the `lpips` event).
 """
 
 import contextlib
@@ -42,7 +47,7 @@ def main(argv=None):
     parser.add_argument("--max_steps", type=int, default=None,
                         help="stop once the iteration reaches N")
     parser.add_argument("--no_lpips", action="store_true",
-                        help="train without the LPIPS term (the port has none yet)")
+                        help="disable the LPIPS loss term even if weights are available")
     parser.add_argument("--profile_dir", type=str, default=None)
     parser.add_argument("--dp", type=int, default=1)
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -60,22 +65,32 @@ def main(argv=None):
 
     import torch
 
+    from gaussianavatar_torch.engine.inference import require_device
     from gaussianavatar_torch.engine.loop import train
+    from gaussianavatar_torch.ops.lpips import try_load_lpips
 
     saving_epochs = sorted(set(args.save_epochs + [cfg.opt.epochs]))
     # the JAX CLI seeds its host RNGs with 0; here the network's initial
     # weights draw from torch's default generator
     torch.manual_seed(0)
     torch.autograd.set_detect_anomaly(args.detect_anomaly)
-    lpips_note = "disabled (--no_lpips)" if args.no_lpips else None
+    require_device(args.device)
     with contextlib.ExitStack() as stack:
         if args.quiet:
             stack.enter_context(contextlib.redirect_stdout(stack.enter_context(
                 open(os.devnull, "w"))))
         print(ignored_raster_note())
         print("Optimizing " + cfg.model.model_path)
+        lpips_fn, lpips_note = None, None
+        if args.no_lpips:
+            lpips_note = "disabled (--no_lpips)"
+        else:
+            lpips_fn = try_load_lpips(cfg.model.project_path, device=args.device)
+            if lpips_fn is None:
+                print("LPIPS weights not found; training without the LPIPS term")
         train(cfg, saving_epochs, device=args.device, max_steps=args.max_steps,
-              lpips_note=lpips_note, checkpoint_epochs=args.checkpoint_epochs)
+              lpips_note=lpips_note, checkpoint_epochs=args.checkpoint_epochs,
+              lpips_fn=lpips_fn)
         print("\nTraining complete.")
 
 

@@ -1,5 +1,8 @@
-"""Minimal OBJ reader for UV-atlas template meshes (the port's copy of
-`load_obj` from gaussianavatar_tpu/utils/obj_io.py): split v/vt topology."""
+"""Minimal OBJ and PLY I/O (the port's copy of
+gaussianavatar_tpu/utils/obj_io.py): `load_obj` reads UV-atlas template
+meshes with split v/vt topology, `save_obj` writes a mesh and
+`save_ply_points` an ASCII point cloud, byte for byte as the JAX package
+writes them."""
 
 from __future__ import annotations
 
@@ -42,3 +45,35 @@ def load_obj(path: str) -> ObjMesh:
         faces_v=np.asarray(faces_v, np.int64),
         faces_vt=np.asarray(faces_vt, np.int64) if faces_vt else np.zeros((0, 3), np.int64),
     )
+
+
+def save_obj(path: str, verts: np.ndarray, faces_v: np.ndarray,
+             uvs: np.ndarray = None, faces_vt: np.ndarray = None):
+    with open(path, "w") as f:
+        for v in verts:
+            f.write(f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}\n")
+        if uvs is not None:
+            for t in uvs:
+                f.write(f"vt {t[0]:.6f} {t[1]:.6f}\n")
+        if uvs is not None and faces_vt is not None:
+            for fv, ft in zip(faces_v, faces_vt):
+                f.write(
+                    f"f {fv[0]+1}/{ft[0]+1} {fv[1]+1}/{ft[1]+1} {fv[2]+1}/{ft[2]+1}\n"
+                )
+        else:
+            for fv in faces_v:
+                f.write(f"f {fv[0]+1} {fv[1]+1} {fv[2]+1}\n")
+
+
+def save_ply_points(path: str, points: np.ndarray):
+    """ASCII PLY point cloud (the reference's debug dumps of the posed
+    points during training)."""
+    points = np.asarray(points)
+    with open(path, "w") as f:
+        f.write(
+            "ply\nformat ascii 1.0\n"
+            f"element vertex {len(points)}\n"
+            "property float x\nproperty float y\nproperty float z\nend_header\n"
+        )
+        for p in points:
+            f.write(f"{p[0]:.6f} {p[1]:.6f} {p[2]:.6f}\n")

@@ -1,12 +1,14 @@
 """Where the time of the port's training step (stage 1, or stage 2 with
-`--stage 2`) goes, on one card.
+`--stage 2`) goes, on one card; with `--lpips`, under the LPIPS term.
 
 Writes chip_smoke.py's training data (8 synthetic frames of 512^2 from the
 port's writer) into a temporary directory and runs the port's training CLI
 (`gaussianavatar_torch.train.main`, canonical widths: query posmap 512,
 bf16 decoder, B=2, 32px tiles, M=9) under torch.profiler. The stages are the
 `train::*` ranges of engine/train_step.py (decode, loss, backward,
-optimizer, the whole step) and the `render::*` ranges the rasterizer opens
+optimizer, the whole step, and `train::lpips`, the LPIPS term's forward,
+with `--lpips`; its backward lands in `train::backward`) and the `render::*`
+ranges the rasterizer opens
 (pose_gaussians, attributes, projection, binning, blend, untile, and on the
 way back blend_bwd and scatter_bwd). Steps after the first `--warmup` count.
 Per step it prints each stage's host time and the device time of the
@@ -14,9 +16,13 @@ kernels launched in it, then the step's wall time, the device-busy share
 and the kernels by device time. With `--stage 2` a stage-1 run of 10 steps
 first gives the stage-2 run its start (export, posmaps at 128), and the
 profiled run is `--train_stage 2` (c_pose 64, nf 32), as chip_smoke.py's
-phase 7.
+phase 7. `--lpips` writes random weights of the exact LPIPS layout
+(ops/lpips.random_lpips_weights, seed 0) under a project directory and
+trains with them from the first step (`--lpips_start_iter 0`), as
+chip_smoke.py's phase 8; the weights stand in for pretrained ones, whose
+times are the same.
 
-    python3 scripts/torch_train_profile.py [--steps 20] [--warmup 10] [--stage 2]
+    python3 scripts/torch_train_profile.py [--steps 20] [--warmup 10] [--stage 2] [--lpips]
 """
 
 import argparse
@@ -25,6 +31,7 @@ import subprocess
 import sys
 import tempfile
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -37,6 +44,8 @@ def main():
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--warmup", type=int, default=10)
     ap.add_argument("--stage", type=int, default=1, choices=[1, 2])
+    ap.add_argument("--lpips", action="store_true",
+                    help="train with the LPIPS term (random weights of the exact layout)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_train_profile: needs CUDA", file=sys.stderr)
@@ -45,6 +54,7 @@ def main():
 
     from gaussianavatar_torch import export_stage_1, gen_pose_map_frames, train as train_cli
     from gaussianavatar_torch.data.synthetic_writer import write_synthetic_dataset
+    from gaussianavatar_torch.ops.lpips import random_lpips_weights
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
@@ -63,6 +73,13 @@ def main():
             argv = ["-m", out, "--train_stage", "2", "--max_steps", str(args.warmup + args.steps),
                     "--stage1_out_path", os.path.join(stage1, "net", "iteration_3")]
         argv = common + argv
+        if args.lpips:
+            proj = os.path.join(work, "proj")
+            os.makedirs(os.path.join(proj, "assets", "lpips"))
+            np.savez(os.path.join(proj, "assets", "lpips", "lpips_alex.npz"),
+                     **random_lpips_weights(0))
+            argv = [a for a in argv if a != "--no_lpips"] + [
+                "--project_path", proj, "--lpips_start_iter", "0"]
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             train_cli.main(argv)
@@ -78,7 +95,8 @@ def main():
         [e for e in events if e.time_range.start < until], ("train::", "render::"), since)
     wall_ms = (until - since) / 1e3
     busy_ms = sum(kernels.values())
-    print(f"stage-{args.stage} training, B=2 of 512x512, canonical widths, steps {args.warmup + 1}-"
+    print(f"stage-{args.stage} training{' with LPIPS' if args.lpips else ''}, B=2 of 512x512, "
+          f"canonical widths, steps {args.warmup + 1}-"
           f"{args.warmup + n} under torch.profiler, per step, on {card}:")
     print(f"  {'range':26s} {'host ms':>9s} {'device ms':>10s}  (device: {how})")
     for name in sorted(host, key=lambda k: -dev[k]):

@@ -26,6 +26,7 @@ from gaussianavatar_tpu.engine.checkpoint import save_checkpoint
 from gaussianavatar_tpu.engine.optim import build_optimizer
 from gaussianavatar_tpu.engine.setup import setup_avatar
 from gaussianavatar_tpu.engine.train_step import init_state
+from gaussianavatar_tpu.ops import lpips as jlpips
 
 from gaussianavatar_torch import config as tconfig
 from gaussianavatar_torch.data import dataset as tdata
@@ -119,7 +120,10 @@ def test_eval_cli_matches_jax(model, monkeypatch):
     res = t_eval.main(["-m", out, "--device", "cpu"])
     ours = _results(out)
     assert set(ours) == set(theirs) == {"psnr", "ssim", "lpips", "raster_overflow"}
-    assert "not ported" in ours["lpips"]
+    # no LPIPS weights: both write the JAX package's status line
+    status = jlpips.lpips_status(model["cfg"].model.project_path)
+    assert ours["lpips"] == theirs["lpips"] == status
+    assert ours["lpips"].startswith("inactive (no weights")
     assert int(ours["raster_overflow"]) == int(theirs["raster_overflow"])
     assert res["frames"] == 5
     np.testing.assert_allclose(res["frame_psnr"], jax_frames["psnr"], rtol=0, atol=PSNR_TOL)

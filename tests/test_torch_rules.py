@@ -107,8 +107,8 @@ def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
     import inspect
 
     from gaussianavatar_torch import (
-        eval as eval_cli, export_stage_1, gen_pose_map_frames, render_novel_pose,
-        render_novel_view, train,
+        eval as eval_cli, export_avatar_ply, export_stage_1, gen_pose_map_cano,
+        gen_pose_map_frames, render_novel_pose, render_novel_view, render_pred_smpl, train,
     )
     from gaussianavatar_torch.engine import inference, loop
 
@@ -124,8 +124,13 @@ def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
             cli.main(["-m", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA device requested"):
         train.main(["-s", str(tmp_path), "-m", str(tmp_path / "out")])
+    # the preprocessing, overlay and export entry points too (sample_romp2gsavatar
+    # and convert_lpips_weights convert files on the host and take no device)
     for argv in ([export_stage_1, ["-m", str(tmp_path), "-s", str(tmp_path)]],
-                 [gen_pose_map_frames, ["--source_path", str(tmp_path), "--synthetic"]]):
+                 [gen_pose_map_frames, ["--source_path", str(tmp_path), "--synthetic"]],
+                 [gen_pose_map_cano, ["--source_path", str(tmp_path), "--synthetic"]],
+                 [render_pred_smpl, ["--source_path", str(tmp_path), "--synthetic"]],
+                 [export_avatar_ply, ["-m", str(tmp_path)]]):
         with pytest.raises(RuntimeError, match="CUDA device requested"):
             argv[0].main(argv[1])
 

@@ -5,7 +5,8 @@ parity with the JAX package's scripts:
    gaussianavatar_torch.train` (stage 1) -> `export_stage_1` ->
    `gen_pose_map_frames` -> `train --train_stage 2` -> `eval`,
    `render_novel_pose` and `render_novel_view`, and stage 2 again with
-   `--fixed_inp 1` (mirroring tests/test_stage2_e2e.py);
+   `--fixed_inp 1` on the port's `gen_pose_map_cano` (mirroring
+   tests/test_stage2_e2e.py);
    The stage-2 save converts to the JAX package's net.ckpt
    (scripts/convert_torch_checkpoint_jax.py) with every tree equal;
 2. on one JAX stage-1 checkpoint, converted by
@@ -168,8 +169,12 @@ def test_two_stage_pipeline_through_the_cli(tmp_path, monkeypatch, capsys):
         assert (img < 0.99).any(-1).mean() > 0.02
 
     # --fixed_inp 1: one static posmap, the canonical one at the input size
-    _jax_script(monkeypatch, "gen_pose_map_cano.py", "--source_path", data, "--synthetic",
-                "--project_path", str(tmp_path), "--sizes", "32")
+    # (the port's gen_pose_map_cano; tests/test_torch_preprocessing.py holds
+    # it against the JAX script)
+    from gaussianavatar_torch import gen_pose_map_cano
+
+    gen_pose_map_cano.main(["--source_path", data, "--synthetic", "--project_path",
+                            str(tmp_path), "--sizes", "32"] + cpu)
     shutil.rmtree(join(data, "train", "inp_map"))
     shutil.rmtree(join(data, "test", "inp_map"))
     train.main(["-s", data, "-m", out3, "--epochs", "1", "--fixed_inp", "1"] + stage2)
