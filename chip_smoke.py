@@ -55,7 +55,23 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      frames of 512^2 with the 48 x 32 body (one H-fwd launch per frame,
      the last frame's blend held against the plain version, frames/s);
      (d) `export_avatar_ply` of phase 5's checkpoint at frame 0, read back
-     and held against the gaussians the renderer draws for that frame.
+     and held against the gaussians the renderer draws for that frame;
+  9. the rest of single-subject training on phase 5's data, through the
+     users' entry points, the launch counts read around each: (a) 30
+     stage-1 steps with `--use_aiap --pos_encoding 1` (aiap finite at every
+     logged step, the decoder 88 inputs wide, H-fwd and H-bwd once per step
+     and held against their plain versions on the last batch, it/s and
+     peak memory beside phase 5's), then `grid_knn` over the 222,784 valid
+     query points on the card against `host_knn` (both timed; neighbour
+     sets and distances where the cell contract holds); (b) one 1024^2
+     view of 20,000 gaussians at SH degree 3 through `ops/rasterize.
+     rasterize` (H-fwd once, held against the plain blend; H-bwd once; the
+     coefficients' gradient against the CPU's plain path); (c) 5 steps
+     with `--profile_dir` (the Chrome trace names train::step and both
+     kernels at every step); (d) the pose-recovery leg of
+     scripts/torch_quality_gate.py on phase 6's save for 2 epochs (its
+     record's keys, exact launch counts, both kernels held on its last
+     batch; the gate's numbers printed, not enforced).
 It prints one JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {...}}. It needs CUDA and the repository around it.
 """
@@ -63,6 +79,7 @@ It prints one JSON line of per-kernel numbers, then, last,
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -642,11 +659,21 @@ class _KernelRecorder:
         self.mod.blend_tiles, self.mod.blend_tiles_bwd = self.real_fwd, self.real_bwd
 
 
-def _hold_train_batch(rec, card, label):
+def _bwd_inputs(rec):
+    """H-bwd's recorded inputs (detached) and caps."""
+    import torch
+
+    args = rec["args"]
+    caps = rec["kw"].get("caps", args[10] if len(args) > 10 else None)
+    return tuple(a.detach() if torch.is_tensor(a) else a for a in args[:10]), caps
+
+
+def _hold_train_batch(rec, card, label, timed=True):
     """H-fwd and H-bwd against their plain versions on the inputs a training
     step gave them (`rec` from _KernelRecorder), each timed beside its
-    bound. -> (H-fwd's error, H-bwd's error, {fwd_ms, fwd_plain_ms,
-    fwd_bound, bwd_ms, bwd_plain_ms, bwd_bound})."""
+    bound unless `timed` is False. -> (H-fwd's error, H-bwd's error,
+    {fwd_ms, fwd_plain_ms, fwd_bound, bwd_ms, bwd_plain_ms, bwd_bound} or
+    None)."""
     import torch
 
     from gaussianavatar_torch.ops.rasterize_tile import (
@@ -660,6 +687,12 @@ def _hold_train_batch(rec, card, label):
     fwd_res = _compare(blend_tiles(*fwd_args, caps=fwd_caps),
                        blend_tiles_plain(*fwd_args, caps=fwd_caps))
     _check_blend(f"{label}, H-fwd", fwd_res)
+    if not timed:
+        bwd_args, caps = _bwd_inputs(rec)
+        out_k = blend_tiles_bwd(*bwd_args, caps=caps)
+        err = _bwd_compare(f"{label}, H-bwd per pair", out_k,
+                           blend_tiles_bwd_plain(*bwd_args, caps=caps))
+        return max(fwd_res["color"], fwd_res["T"]), err, None
     fwd_ms = _time_ms(lambda: blend_tiles(*fwd_args, caps=fwd_caps), reps=20)
     fwd_plain_ms = _time_ms(lambda: blend_tiles_plain(*fwd_args, caps=fwd_caps), reps=3, warmup=1)
     fwd_bound = _blend_bound(fwd_args, fwd_caps)
@@ -670,9 +703,7 @@ def _hold_train_batch(rec, card, label):
 
     # then H-bwd against its plain version, per pair and through the
     # scatter into the packed table
-    args, caps = rec["args"], rec["kw"].get("caps", rec["args"][10] if len(rec["args"]) > 10
-                                            else None)
-    bwd_args = tuple(a.detach() if torch.is_tensor(a) else a for a in args[:10])
+    bwd_args, caps = _bwd_inputs(rec)
     print(f"  {label}: {bwd_args[0].shape[0] // 2} gaussians per view (padding included), "
           f"{int(bwd_args[2][-1])} binned (tile, gaussian) pairs, "
           f"{int(bwd_args[7].amax(1).max())} deepest contributor")
@@ -1060,6 +1091,241 @@ def phase_pipeline(device, card, work, train_stats):
     return max(fwd_err, ov_res["color"], ov_res["T"]), bwd_err, total
 
 
+# grid_knn over phase 5's query points: cells of 5 mm (the points' 5th
+# neighbour lies within 4.02 mm of each), at most 16 points a cell
+KNN_K, KNN_CELL, KNN_PER_CELL = 5, 0.005, 16
+# the SH render: a random scene of gaussians in front of phase 3's camera,
+# its coefficients' gradient on the card against the CPU's plain path within
+# this share of the largest |gradient| (projection and binning run on both,
+# rounding differently; a gate flip at alpha 1/255 moves one pixel's term)
+SH_N, SH_DEG, TOL_SH_GRAD_REL = 20_000, 3, 1e-3
+# the pose-recovery record's keys (scripts/quality_gate.py's leg)
+POSE_KEYS = {"init_err", "refined_err", "steps", "loss_floor", "loss_first_epoch",
+             "loss_last_epoch", "recovered_fraction", "render_psnr_perturbed",
+             "render_psnr_refined", "pass"}
+
+
+def _knn_check(points, card):
+    """grid_knn on the card against host_knn over the same points; both
+    timed. Fails where the cell contract holds and the two disagree."""
+    import numpy as np
+    import torch
+    from scipy.spatial import cKDTree
+
+    from gaussianavatar_torch.ops.knn import grid_knn, host_knn
+
+    pts = points.cpu().numpy()
+    t0 = time.perf_counter()
+    host_idx = host_knn(pts, KNN_K)
+    host_s = time.perf_counter() - t0
+    ms = _time_ms(lambda: grid_knn(points, KNN_K, KNN_CELL, KNN_PER_CELL), reps=3, warmup=1)
+    idx, dist = (x.cpu().numpy() for x in grid_knn(points, KNN_K, KNN_CELL, KNN_PER_CELL))
+    d_exact, _ = cKDTree(pts).query(pts, k=KNN_K + 2)
+    cells = np.floor(pts / KNN_CELL).astype(np.int64)
+    per_cell = int(np.unique(cells, axis=0, return_counts=True)[1].max())
+    held = d_exact[:, KNN_K] <= KNN_CELL          # the k-th neighbour within one cell
+    if per_cell > KNN_PER_CELL or held.mean() < 0.99:
+        _fail(f"the cell contract does not hold: the fullest cell holds {per_cell} points "
+              f"(at most {KNN_PER_CELL}), the k-th neighbour lies within a cell at "
+              f"{held.mean() * 100:.2f}% of points")
+    # neighbour sets decide only where the k-th and (k+1)-th do not tie
+    untied = held & (d_exact[:, KNN_K + 1] - d_exact[:, KNN_K] > 1e-6)
+    same_rows = float((idx == host_idx)[held].all(1).mean())
+    same_sets = np.sort(idx, 1) == np.sort(host_idx, 1)
+    sets_agree = float(same_sets[untied].all(1).mean())
+    d_err = float(np.abs(dist - d_exact[:, 1:KNN_K + 1])[held].max())
+    print(f"  grid_knn on {len(pts)} query points (k {KNN_K}, cell {KNN_CELL * 1e3:.0f} mm, "
+          f"<= {KNN_PER_CELL} a cell; the fullest holds {per_cell}; contract held at "
+          f"{held.mean() * 100:.2f}% of points): {ms:.3f} ms on the card, host_knn "
+          f"{host_s * 1e3:.1f} ms on the host; rows equal at {same_rows * 100:.2f}%, "
+          f"neighbour sets equal at {sets_agree * 100:.3f}% of the {int(untied.sum())} points "
+          f"without a tie at the k-th, max|d dist| {d_err:.2e} (tol 1e-6); on {card}")
+    if sets_agree < 1.0 or d_err > 1e-6:
+        _fail("grid_knn disagrees with host_knn where the cell contract holds")
+    return ms, host_s
+
+
+def _sh_scene(device):
+    """SH_N gaussians in the box the avatar stands in, coefficients of
+    degree SH_DEG, phase 3's 1024^2 camera, all from seed 0."""
+    import numpy as np
+    import torch
+
+    from gaussianavatar_torch.ops.camera import Camera
+
+    g = torch.Generator().manual_seed(0)
+    u = lambda *s: torch.rand(s, generator=g)
+    means = (u(SH_N, 3) - 0.5) * torch.tensor([0.8, 1.6, 0.4]) + torch.tensor([0.0, 0.8, 0.0])
+    q = torch.randn((SH_N, 4), generator=g)
+    scene = {"means": means, "scales": 0.004 + 0.008 * u(SH_N, 3),
+             "rotations": q / q.norm(dim=-1, keepdim=True), "opacities": 0.3 + 0.7 * u(SH_N),
+             "shs": 0.3 * torch.randn((SH_N, (SH_DEG + 1) ** 2, 3), generator=g),
+             "cot": torch.randn((3, 1024, 1024), generator=g)}
+    K = np.array([[1120.0, 0, 512.0], [0, 1120.0, 512.0], [0, 0, 1]], np.float32)
+    cam = Camera.from_extrinsics(np.eye(3, dtype=np.float32),
+                                 np.array([0.0, -0.8, 1.6], np.float32), K, 1024, 1024,
+                                 device=device)
+    return {k: v.to(device) for k, v in scene.items()}, cam
+
+
+def _sh_render(scene, cam):
+    """rasterize with SH coefficients, then the backward of <image, cot>
+    -> (image, the coefficients' gradient)."""
+    import torch
+
+    from gaussianavatar_torch.ops.rasterize import RasterizeConfig, rasterize
+
+    shs = scene["shs"].clone().requires_grad_(True)
+    img = rasterize(scene["means"], None, scene["scales"], scene["rotations"],
+                    scene["opacities"], cam, torch.ones(3, device=shs.device),
+                    config=RasterizeConfig(32, 4), shs=shs, sh_degree=SH_DEG)
+    (img * scene["cot"]).sum().backward()
+    return img.detach(), shs.grad
+
+
+def phase_train_terms(device, card, work, train_stats):
+    """Phase 9 on phase 5's data and checkpoint: (a) training with AIAP and
+    the positional encoding, grid_knn on the card; (b) the SH render; (c)
+    the profiled run; (d) the pose-recovery leg. -> (H-fwd's error, H-bwd's
+    error, launches)."""
+    import numpy as np
+    import torch
+
+    from gaussianavatar_torch import train as train_cli
+    from gaussianavatar_torch.config import Config
+    from gaussianavatar_torch.engine import checkpoint as ckpt
+    from gaussianavatar_torch.engine.setup import setup_avatar
+    from gaussianavatar_torch.ops.rasterize_tile import blend_tiles, blend_tiles_plain
+
+    data, out1 = os.path.join(work, "data"), os.path.join(work, "out")
+    errs_fwd, errs_bwd, total = [], [], {}
+
+    def add(counts):
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+
+    # (a) 30 steps with --use_aiap --pos_encoding 1
+    t_phase = time.perf_counter()
+    out = os.path.join(work, "out_terms")
+    argv = _train_argv(data, out) + ["--use_aiap", "--pos_encoding", "1",
+                                     "--max_steps", str(TRAIN_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    with _KernelRecorder() as recorder:
+        _, counts, wall = _run_counted(train_cli.main, argv)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  kernel launches in the AIAP + positional-encoding run: {counts} "
+          f"({TRAIN_STEPS} steps)")
+    for name in TRAIN_KERNELS:
+        if counts[name] != TRAIN_STEPS:
+            _fail(f"the AIAP run launched {name} {counts[name]} times, not once per step")
+    add(counts)
+    steps, rate = _train_rate(out, TRAIN_STEPS)
+    if not all("aiap" in r and math.isfinite(r["aiap"]) and math.isfinite(r["total"])
+               for r in steps.values()):
+        _fail("the AIAP run logged a step without a finite aiap term")
+    last = steps[TRAIN_STEPS]
+    sd = torch.load(os.path.join(ckpt.ckpt_dir(out, ckpt.latest_epoch(out)), ckpt.CKPT_NAME),
+                    weights_only=True)
+    width = sd["pop.decoder.dense.0.weight"].shape[1]
+    print(f"  AIAP + positional encoding: {rate:.2f} it/s steady (steps 10-{TRAIN_STEPS}; "
+          f"phase 5 {train_stats['rate']:.2f}), peak memory {peak_gb:.2f} GiB (phase 5 "
+          f"{train_stats['peak_gb']:.2f}), loss {steps[1]['total']:.5f} -> {last['total']:.5f}, "
+          f"aiap {steps[1]['aiap']:.3e} -> {last['aiap']:.3e}, decoder input width {width}, "
+          f"{wall:.1f} s in all (setup included), on {card}")
+    if width != 64 + 2 * 2 * 6:
+        _fail(f"the decoder takes {width} inputs, not 88")
+    fwd_err, bwd_err, _ = _hold_train_batch(recorder.rec, card, "AIAP train batch", timed=False)
+    errs_fwd.append(fwd_err)
+    errs_bwd.append(bwd_err)
+    cfg = Config.load(os.path.join(out1, "cfg_args.json"))
+    assets = setup_avatar(cfg, device=device).assets
+    knn_ms, knn_host_s = _knn_check(assets.query_points[:assets.num_valid], card)
+    print(f"  (a) in {time.perf_counter() - t_phase:.1f} s")
+
+    # (b) the SH render of one 1024^2 view, its gradient to the coefficients
+    t_phase = time.perf_counter()
+    scene, cam = _sh_scene(device)
+    with _KernelRecorder() as recorder:
+        (img, grad), counts, wall = _run_counted(_sh_render, scene, cam)
+    print(f"  SH render: {SH_N} gaussians, degree {SH_DEG}, 1024x1024, forward and backward "
+          f"in {wall * 1e3:.1f} ms (first call), launches {counts}")
+    if counts["blend_fwd"] != 1 or counts["blend_bwd"] != 1:
+        _fail(f"the SH render launched {counts}, not H-fwd and H-bwd once each")
+    add(counts)
+    rec = recorder.rec
+    args = tuple(a.detach() if torch.is_tensor(a) else a for a in rec["fwd_args"][:6])
+    res = _compare(blend_tiles(*args, caps=None), blend_tiles_plain(*args, caps=None))
+    _check_blend("SH render, H-fwd", res)
+    errs_fwd.append(max(res["color"], res["T"]))
+    covered = float((img < 0.99).any(0).float().mean())
+    scene_cpu = {k: v.cpu() for k, v in scene.items()}
+    cam_cpu = type(cam)(*(x.cpu() if torch.is_tensor(x) else x for x in cam))
+    t0 = time.perf_counter()
+    img_cpu, grad_cpu = _sh_render(scene_cpu, cam_cpu)
+    cpu_s = time.perf_counter() - t0
+    scale = float(grad_cpu.abs().max())
+    g_err = float((grad.cpu() - grad_cpu).abs().max())
+    i_err = float((img.cpu() - img_cpu).abs().max())
+    print(f"  SH render vs the CPU's plain path ({cpu_s:.1f} s there): {covered * 100:.1f}% of "
+          f"pixels covered, max|d image| {i_err:.2e}, coefficients' gradient max|d| {g_err:.2e} "
+          f"of max|grad| {scale:.2e} ({g_err / scale:.2e}, tol {TOL_SH_GRAD_REL:g})")
+    if not bool(torch.isfinite(grad).all()) or scale == 0 or g_err > TOL_SH_GRAD_REL * scale:
+        _fail("the SH render's coefficient gradient is not finite or disagrees with the CPU")
+    print(f"  (b) in {time.perf_counter() - t_phase:.1f} s")
+
+    # (c) the profiled run: 5 steps under torch.profiler, a Chrome trace
+    t_phase = time.perf_counter()
+    prof, n_prof = os.path.join(work, "prof"), 5
+    argv = _train_argv(data, os.path.join(work, "out_prof")) + [
+        "--max_steps", str(n_prof), "--profile_dir", prof]
+    _, counts, wall = _run_counted(train_cli.main, argv)
+    trace = os.path.join(prof, "trace.json")
+    if not os.path.exists(trace):
+        _fail("--profile_dir wrote no trace")
+    # the trace holds the whole run, set-up included (hundreds of MB): scan
+    # its text for the events' names instead of parsing it
+    text = open(trace).read()
+    n_of = lambda key: len(re.findall(r'"name": "[^"]*' + key, text))
+    found = {key: n_of(key) for key in ("train::step", "blend_fwd_kernel", "blend_bwd_kernel")}
+    print(f"  profiled run: {n_prof} steps, launches {counts}, {wall:.1f} s in all; "
+          f"{len(text) / 2**20:.1f} MB trace, events named: {found}")
+    del text
+    if counts["blend_fwd"] != n_prof or counts["blend_bwd"] != n_prof \
+            or any(n < n_prof for n in found.values()):
+        _fail("the profiled run's trace does not name train::step and both kernels per step")
+    add(counts)
+    print(f"  (c) in {time.perf_counter() - t_phase:.1f} s")
+
+    # (d) the pose-recovery leg on phase 5's (and 6's) save, 2 epochs
+    t_phase = time.perf_counter()
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import torch_quality_gate as gate
+
+    epoch = ckpt.latest_epoch(out1, ckpt.TRAIN_NAME)
+    with _KernelRecorder() as recorder:
+        (result, _), counts, wall = _run_counted(gate.pose_recovery, out1, epoch, device,
+                                                 2e-2, 2, 0.3)
+    per_epoch = result["steps"] // 2
+    n_render = 3 * min(max(gate.RENDER_FRAMES // 2, 1), per_epoch)
+    expect = {"blend_fwd": per_epoch + result["steps"] + n_render,
+              "blend_bwd": per_epoch + result["steps"]}
+    print(f"  pose leg on iteration_{epoch}: launches {counts} (expected {expect}: the floor "
+          f"epoch, {result['steps']} refinement steps, {n_render} renders), {wall:.1f} s in all")
+    print("  pose leg (not gated here, a 38-step net): " + ", ".join(
+        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in result.items()))
+    if set(result) != POSE_KEYS or counts != expect:
+        _fail("the pose leg's record or launch counts are not as expected")
+    if not all(math.isfinite(v) for k, v in result.items() if k != "pass"):
+        _fail("the pose leg's numbers are not finite")
+    add(counts)
+    fwd_err, bwd_err, _ = _hold_train_batch(recorder.rec, card, "pose leg's last batch",
+                                            timed=False)
+    errs_fwd.append(fwd_err)
+    errs_bwd.append(bwd_err)
+    print(f"  (d) in {time.perf_counter() - t_phase:.1f} s")
+    return max(errs_fwd), max(errs_bwd), total
+
+
 def main():
     try:
         import torch
@@ -1094,14 +1360,22 @@ def main():
         print("phase 8: the rest of the pipeline on phase 5's data: LPIPS training and eval, "
               "preprocessing, the SMPL overlay, the PLY export")
         p8_fwd_err, p8_bwd_err, p8_counts = phase_pipeline(device, card, work, train_stats)
+        print("phase 9: the rest of single-subject training on phase 5's data: AIAP and the "
+              "positional encoding, grid_knn, the SH render, the profiled run, the pose leg")
+        t9 = time.perf_counter()
+        p9_fwd_err, p9_bwd_err, p9_counts = phase_train_terms(device, card, work, train_stats)
+        print(f"  phase 9 in {time.perf_counter() - t9:.1f} s")
     # launches: each main path's run, added (the render's H-fwd, training's,
     # then the resumed run's, eval's and the novel view's, then stage 2's,
-    # then phase 8's)
+    # then phase 8's, then phase 9's)
     fwd["launches"] += (train_counts["blend_fwd"] + rest_counts["blend_fwd"]
-                        + s2_counts["blend_fwd"] + p8_counts["blend_fwd"])
-    bwd["launches"] += rest_counts["blend_bwd"] + s2_counts["blend_bwd"] + p8_counts["blend_bwd"]
-    fwd["max_abs_err"] = max(fwd["max_abs_err"], train_fwd_err, s2_fwd_err, p8_fwd_err)
-    bwd["max_abs_err"] = max(bwd["max_abs_err"], s2_bwd_err, p8_bwd_err)
+                        + s2_counts["blend_fwd"] + p8_counts["blend_fwd"]
+                        + p9_counts["blend_fwd"])
+    bwd["launches"] += (rest_counts["blend_bwd"] + s2_counts["blend_bwd"]
+                        + p8_counts["blend_bwd"] + p9_counts["blend_bwd"])
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], train_fwd_err, s2_fwd_err, p8_fwd_err,
+                             p9_fwd_err)
+    bwd["max_abs_err"] = max(bwd["max_abs_err"], s2_bwd_err, p8_bwd_err, p9_bwd_err)
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [fwd, bwd]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -231,14 +231,15 @@ def collate(items: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
 
 
 class BatchLoader:
-    """Shuffled (a fixed seed), drop-last batches of a dataset. Items are
-    assembled on the calling thread: once the GT images live on the device
-    an item is a camera and an index."""
+    """Shuffled drop-last batches of a dataset: each pass draws the next
+    permutation of one generator seeded with `seed` (the JAX BatchLoader's
+    order for the same seed). Items are assembled on the calling thread:
+    once the GT images live on the device an item is a camera and an index."""
 
-    def __init__(self, dataset, batch_size: int):
+    def __init__(self, dataset, batch_size: int, seed: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
-        self.rng = np.random.default_rng(0)
+        self.rng = np.random.default_rng(seed)
 
     def __len__(self):
         return len(self.dataset) // self.batch_size

@@ -20,7 +20,11 @@ Left out, because the port does not need them: the TPU capacity machinery
 (need tables and their retunes, chunk budgets, cascade tiers, footprint
 adaptation; the port's blend walks every tile's whole range),
 `steps_per_dispatch` scans and `device_prefetch` (dispatch-latency work for
-the TPU's host link), and `--dp`. Left for a later slice: AIAP.
+the TPU's host link). Left for the next slice: `--dp`.
+
+With `use_aiap` the run builds the AIAP neighbour graph once, on the host
+(`host_knn`, k=5 over the valid canonical query points), as the JAX loop
+does.
 """
 
 from __future__ import annotations
@@ -41,12 +45,13 @@ from gaussianavatar_torch.engine.logging_utils import MetricsLogger
 from gaussianavatar_torch.engine.optim import build_optimizer
 from gaussianavatar_torch.engine.setup import setup_avatar
 from gaussianavatar_torch.engine.train_step import TrainState, make_train_step
+from gaussianavatar_torch.ops.knn import host_knn
 from gaussianavatar_torch.ops.lpips import lpips_status
 from gaussianavatar_torch.ops.rasterize import raster_config
 from gaussianavatar_torch.utils.obj_io import save_ply_points
 
 # per-item keys the step does not read
-_DROP_KEYS = {"FovX", "FovY", "height", "width", "projection_matrix", "camera_center"}
+DROP_KEYS = {"FovX", "FovY", "height", "width", "projection_matrix", "camera_center"}
 
 
 def adjust_loss_weights(init_weight, current_epoch, mode="decay", start=0, every=20):
@@ -102,6 +107,19 @@ def input_posmap_bank(mp, dataset, device) -> torch.Tensor:
     else:
         bank = np.stack([dataset.inp_posmap(i) for i in range(len(dataset))])
     return torch.as_tensor(bank, device=device)
+
+
+def build_gt_bank(dataset, device) -> torch.Tensor:
+    """The GT bank: every training frame once on the device, (n_frames, 3,
+    H, W) uint8, gathered by pose_idx in the step; from here the dataset
+    serves cameras only."""
+    gt_bank = torch.as_tensor(np.stack([dataset.frame_u8(i) for i in range(len(dataset))]),
+                              device=device)
+    dataset.drop_image_cache()
+    H, W = gt_bank.shape[-2:]
+    print(f"GT bank on {device}: {len(dataset)} frames of {H}x{W}, "
+          f"{gt_bank.numel() / 2**20:.0f} MB uint8")
+    return gt_bank
 
 
 def save_image_grid(path: str, images: np.ndarray):
@@ -172,14 +190,14 @@ def train(
         H, W = dataset.image_hw()
         bg = (1.0, 1.0, 1.0) if mp.white_background else (0.0, 0.0, 0.0)
 
-        # the GT bank: every frame once on the device as uint8, gathered by
-        # pose_idx in the step; from here the dataset serves cameras only
-        gt_bank = torch.as_tensor(np.stack([dataset.frame_u8(i) for i in range(len(dataset))]),
-                                  device=device)
-        dataset.drop_image_cache()
-        print(f"GT bank on {device}: {len(dataset)} frames of {H}x{W}, "
-              f"{gt_bank.numel() / 2**20:.0f} MB uint8")
+        gt_bank = build_gt_bank(dataset, device)
         inp_bank = input_posmap_bank(mp, dataset, device) if mp.train_stage == 2 else None
+
+        aiap_nn = None
+        if opt.use_aiap:
+            pts = bundle.assets.query_points[:bundle.assets.num_valid].cpu().numpy()
+            aiap_nn = torch.as_tensor(host_knn(pts, k=5), device=device)
+            print(f"AIAP regularizer on: {pts.shape[0]} points, k=5")
 
         net.train()
         state = TrainState(net, build_optimizer(net, opt, steps_per_epoch, mp.train_stage))
@@ -188,7 +206,7 @@ def train(
         step = make_train_step(net, bundle.body_model, bundle.assets, opt, H, W, bg,
                                raster_config(cfg, train=True), gt_bank,
                                train_stage=mp.train_stage, lpips_fn=lpips_fn,
-                               use_aiap=bool(opt.use_aiap), inp_bank=inp_bank)
+                               aiap_nn=aiap_nn, inp_bank=inp_bank)
 
         ema_loss = 0.0
         t_start = time.time()
@@ -199,7 +217,7 @@ def train(
             pose_gate = pose_opt_gate_value(mp.train_stage, epoch, opt)
             lpips_gate = lpips_gate_value(lpips_fn is not None, epoch, opt)
             for batch in loader:
-                feed = {k: v for k, v in batch.items() if k not in _DROP_KEYS}
+                feed = {k: v for k, v in batch.items() if k not in DROP_KEYS}
                 terms, images = step(state, feed, w_rgl, pose_gate, lpips_gate)
                 it = state.iteration
                 if (it - 1) % opt.log_iter == 0:

@@ -64,9 +64,6 @@ def _load_reference_assets(mp, betas: np.ndarray, J: int, device) -> Optional[Av
 
 def setup_avatar(cfg: Config, device: str = "cuda", train: bool = False) -> AvatarBundle:
     mp, npar = cfg.model, cfg.net
-    if npar.pos_encoding:
-        raise NotImplementedError("--pos_encoding is not ported yet to gaussianavatar_torch "
-                                  "(ROADMAP Queue 1, optional terms)")
     frames = MonoDatasetTrain(mp) if train else FrameTable(mp)
     betas = np.asarray(frames.smpl_data["beta"], np.float32).reshape(-1)
 
@@ -111,6 +108,9 @@ def setup_avatar(cfg: Config, device: str = "cuda", train: bool = False) -> Avat
         geom_layer_type=npar.geom_layer_type or None,
         up_mode=npar.up_mode,
         use_dropout=bool(npar.use_dropout),
+        pos_encoding=bool(npar.pos_encoding),
+        num_emb_freqs=npar.num_emb_freqs,
+        posemb_incl_input=bool(npar.posemb_incl_input),
         train_stage=mp.train_stage,
         compute_dtype="bfloat16" if npar.bf16_decoder else "float32",
         pose_init=frames.pose_data,

@@ -16,14 +16,16 @@ gaussianavatar_tpu/engine/train_step.py), stage 1 and stage 2:
        stage 2 = offset + L1 * (1 - lambda_dssim) + lambda_dssim * (1 - SSIM)
                  + lambda_pose * mean(pose_featmap^2);
        with LPIPS weights, + lpips_gate * lambda_lpips * LPIPS(images, GT)
-       (both mapped to [-1, 1]; logged as `vgg` whatever the gate)
+       (both mapped to [-1, 1]; logged as `vgg` whatever the gate);
+       with a neighbour graph (`aiap_nn`, --use_aiap), + lambda_aiap *
+       aiap_loss(query points + offsets, world points) over the valid
+       points (logged as `aiap`)
     -> backward -> embedding gradients times the pose-optimization gate
     -> the optimizer groups (engine/optim.py).
 
 Where the JAX step returns a new state, this one updates `TrainState` in
 place: the network's parameters and BatchNorm statistics, the optimizer's
-moments, and the iteration counter. The AIAP regulariser is not ported
-yet; asking for it raises. The stages open `train::*` and
+moments, and the iteration counter. The stages open `train::*` and
 `render::*` profiler ranges (scripts/torch_train_profile.py reads them);
 each costs one `record_function` per step.
 """
@@ -42,6 +44,7 @@ from gaussianavatar_torch.models.avatar import (
     AvatarAssets, AvatarNet, gaussian_attributes, pose_gaussians, scale_warmup,
 )
 from gaussianavatar_torch.models.body import BodyModel
+from gaussianavatar_torch.ops.knn import aiap_loss
 from gaussianavatar_torch.ops.rasterize import RasterizeConfig, rasterize_views
 from gaussianavatar_torch.ops.ssim import l1_loss, ssim
 
@@ -65,7 +68,7 @@ def make_train_step(
     gt_bank: torch.Tensor,           # (n_frames, 3, H, W) uint8 on the device
     train_stage: int = 1,
     lpips_fn: Optional[Callable] = None,   # ops/lpips.LPIPS on the device, or None
-    use_aiap: bool = False,
+    aiap_nn: Optional[torch.Tensor] = None,   # (num_valid, k) neighbour indices, --use_aiap
     inp_bank: Optional[torch.Tensor] = None,  # (n_frames | 1, 3, F, F) f32, stage 2
 ):
     """-> train_step(state, batch, w_rgl, pose_opt_gate, lpips_gate) ->
@@ -78,10 +81,6 @@ def make_train_step(
         raise ValueError(f"train_stage must be 1 or 2, got {train_stage}")
     if train_stage == 2 and inp_bank is None:
         raise ValueError("stage 2 needs the input posmap bank (inp_bank)")
-    if use_aiap:
-        raise NotImplementedError(
-            "AIAP is not in the port's train step yet: it comes with the optional-terms "
-            "slice (ROADMAP Queue 1); train without --use_aiap")
     device = assets.query_points.device
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=device)
     embeddings = (net.pose_embedding, net.transl_embedding)
@@ -135,6 +134,13 @@ def make_train_step(
                 pose_loss = torch.mean(pose_featmap ** 2) * opt_cfg.lambda_pose
                 loss = offset_loss + l1 + ssim_loss + pose_loss
                 terms = dict(l1=l1, ssim=ssim_loss, offset=offset_loss, pose=pose_loss)
+            if aiap_nn is not None:
+                with record_function("train::aiap"):
+                    nv = assets.num_valid
+                    cano = assets.query_points[None, :nv] + res[:, :nv]
+                    aiap = opt_cfg.lambda_aiap * aiap_loss(cano, world[:, :nv], aiap_nn)
+                loss = loss + aiap
+                terms["aiap"] = aiap
         if lpips_fn is not None:
             with record_function("train::lpips"):
                 # at gate 0 the term is only logged: it leaves no gradient

@@ -126,6 +126,9 @@ class AvatarNet(nn.Module):
         geom_layer_type: Optional[str] = "conv",
         up_mode: str = "upconv",
         use_dropout: bool = False,
+        pos_encoding: bool = False,
+        num_emb_freqs: int = 6,
+        posemb_incl_input: bool = False,
         train_stage: int = 1,
         compute_dtype: str = "float32",
         pose_init: Optional[np.ndarray] = None,
@@ -145,6 +148,8 @@ class AvatarNet(nn.Module):
         self.transl_embedding = nn.Parameter(torch.as_tensor(np.asarray(transl, np.float32)))
         self.pop = POPDecoder(c_geom=c_geom, geom_layer_type=geom_layer_type or None, nf=nf,
                               hsize=hsize, up_mode=up_mode, use_dropout=use_dropout,
+                              pos_encoding=pos_encoding, num_emb_freqs=num_emb_freqs,
+                              posemb_incl_input=posemb_incl_input,
                               compute_dtype=compute_dtype, generator=generator)
         # the input posmap is xyz: 3 channels
         self.pose_encoder = (UnetNoCond5DS(3, c_pose, nf, up_mode, use_dropout=False)

@@ -6,9 +6,9 @@
     -> + the pose feature map (stage 2)
     -> bilinear upsample to the query UV resolution (`pop_upsample`)
     -> gather the valid UV pixels (the MLP runs on valid points only)
+    -> + their uv coordinates, NeRF-encoded with `pos_encoding`
+       (`num_emb_freqs` frequencies, the raw uv too with `posemb_incl_input`)
     -> ShapeDecoder -> (offsets, isotropic scales, colors) per point.
-
-The positional encoding of the uv coordinates is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from gaussianavatar_torch.models.decoder import ShapeDecoder
 from gaussianavatar_torch.models.layers import (
     GeomConvBottleneckLayers, GeomConvLayers, UnetNoCond5DS,
 )
+from gaussianavatar_torch.ops.embedder import get_embedder
 from gaussianavatar_torch.ops.resample import pop_upsample
 
 
@@ -41,11 +42,16 @@ def _smoother(kind: Optional[str], c_geom: int, nf: int, up_mode: str, use_dropo
 class POPDecoder(nn.Module):
     def __init__(self, c_geom: int = 64, geom_layer_type: Optional[str] = "conv",
                  nf: int = 32, hsize: int = 128, up_mode: str = "upconv",
-                 use_dropout: bool = False, compute_dtype: str = "float32",
+                 use_dropout: bool = False, pos_encoding: bool = False,
+                 num_emb_freqs: int = 6, posemb_incl_input: bool = False,
+                 compute_dtype: str = "float32",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.geom = _smoother(geom_layer_type, c_geom, nf, up_mode, use_dropout, generator)
-        self.decoder = ShapeDecoder(c_geom + 2, hsize=hsize, compute_dtype=compute_dtype)
+        # the uv coordinates: 2 channels, or 2 (2 m + incl) encoded
+        self.embed, uv_dim = get_embedder(num_emb_freqs if pos_encoding else 0, input_dims=2,
+                                          include_input=bool(posemb_incl_input))
+        self.decoder = ShapeDecoder(c_geom + uv_dim, hsize=hsize, compute_dtype=compute_dtype)
 
     def forward(
         self,
@@ -62,5 +68,5 @@ class POPDecoder(nn.Module):
         B, C = geom_featmap.shape[:2]
         up = pop_upsample(geom_featmap, query_res)                  # (B, C, R, R)
         pts = up.reshape(B, C, query_res * query_res)[:, :, valid_idx].transpose(1, 2)
-        uv = uv_coords[None].expand(B, -1, -1)
-        return self.decoder(torch.cat([pts, uv], dim=-1))           # (B, Nv, C+2)
+        uv = self.embed(uv_coords)[None].expand(B, -1, -1)
+        return self.decoder(torch.cat([pts, uv], dim=-1))           # (B, Nv, C+uv)

@@ -15,8 +15,18 @@ per-frame input posmaps in the dataset (`python -m
 gaussianavatar_torch.export_stage_1`, then `python -m
 gaussianavatar_torch.gen_pose_map_frames`), or with `--fixed_inp 1` the
 canonical posmap at the input resolution. `--start_checkpoint` is parsed
-and unused, as in the JAX train.py. `--pos_encoding 1`, `--dp` and
-`--profile_dir` are not ported yet and raise.
+and unused, as in the JAX train.py. `--dp` is not ported yet and raises
+(it comes with multi-subject training).
+
+    python -m gaussianavatar_torch.train ... --pos_encoding 1 --use_aiap
+    python -m gaussianavatar_torch.train ... --profile_dir <dir> [--max_steps N]
+
+`--pos_encoding 1` NeRF-encodes the decoder's uv inputs; `--use_aiap` adds
+the AIAP regulariser over a k=5 neighbour graph of the canonical points.
+`--profile_dir` runs `--max_steps` steps (20 when not given) under
+`torch.profiler` (CPU and, on the card, CUDA activities) and writes a
+Chrome trace into the directory, with the step's `train::*` and
+`render::*` ranges.
 
 LPIPS: with weights under `<project_path>/assets/lpips/` (or the
 repository's), `lpips_alex.npz` or the raw `alexnet*.pth` + `alex.pth` pair
@@ -54,14 +64,10 @@ def main(argv=None):
     args = parser.parse_args(argv if argv is not None else sys.argv[1:])
 
     cfg = extract_config(args)
-    not_ported = [flag for flag, asked in (
-        ("--pos_encoding 1", bool(cfg.net.pos_encoding)),
-        ("--dp", args.dp != 1),
-        ("--profile_dir", args.profile_dir is not None),
-    ) if asked]
-    if not_ported:
-        raise NotImplementedError(f"not ported yet to gaussianavatar_torch: {', '.join(not_ported)}"
-                                  " (later slices of the port; the JAX train.py has them)")
+    if args.dp != 1:
+        raise NotImplementedError("--dp is not ported yet to gaussianavatar_torch: data "
+                                  "parallelism comes with the multi-subject training slice "
+                                  "(ROADMAP Queue 1); the JAX train.py has it")
 
     import torch
 
@@ -88,10 +94,33 @@ def main(argv=None):
             lpips_fn = try_load_lpips(cfg.model.project_path, device=args.device)
             if lpips_fn is None:
                 print("LPIPS weights not found; training without the LPIPS term")
-        train(cfg, saving_epochs, device=args.device, max_steps=args.max_steps,
-              lpips_note=lpips_note, checkpoint_epochs=args.checkpoint_epochs,
-              lpips_fn=lpips_fn)
+        run = lambda max_steps: train(cfg, saving_epochs, device=args.device,
+                                      max_steps=max_steps, lpips_note=lpips_note,
+                                      checkpoint_epochs=args.checkpoint_epochs,
+                                      lpips_fn=lpips_fn)
+        if args.profile_dir:
+            trace = profiled(run, args.profile_dir, args.max_steps or 20, args.device)
+            print("profiler trace written to", trace)
+        else:
+            run(args.max_steps)
         print("\nTraining complete.")
+
+
+def profiled(run, profile_dir: str, max_steps: int, device: str) -> str:
+    """run(max_steps) under torch.profiler (CPU activities, and CUDA ones on
+    the card) -> the Chrome trace it wrote into `profile_dir`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        run(max_steps)
+    path = os.path.join(profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    return path
 
 
 if __name__ == "__main__":

@@ -15,12 +15,22 @@ copies; it imports no JAX, so it runs where only the port is installed):
      stage 2 for epochs // 2 from the stage-1 endpoint, evaluate its end:
      stage-2 PSNR >= the stage-1 final PSNR (the larger of the endpoint
      and the parameter mean) - 1.0 dB at the canonical workload, - 1.5 dB
-     otherwise.
+     otherwise;
+  4. with --pose_opt: frozen-net pose recovery (`pose_recovery`, the leg
+     of scripts/quality_gate.py step for step): freeze the stage-1
+     endpoint's net (lr_net = lr_geomfeat = 0; BatchNorm statistics still
+     move in training mode), perturb the pose embeddings with N(0,
+     --pose_noise) outside the global orientation, refine them with
+     SparseAdam at --pose_lr for --pose_epochs epochs, and require
+     recovered_fraction >= 0.5 of the loss excess over the frozen net's
+     floor at the true poses, and a render-space PSNR(refined, true) >=
+     PSNR(perturbed, true) + 6 dB or >= 35 dB.
 
 The parameter mean of the last 3 saves ("SWA") is evaluated and recorded,
 not gated. The canonical campaign:
 
-    python scripts/torch_quality_gate.py --work output/torch_qg512 --query 512 --inp 128 [--stage2]
+    python scripts/torch_quality_gate.py --work output/torch_qg512 --query 512 --inp 128 \
+        [--stage2] [--pose_opt --pose_lr 1e-2]
 
 It writes <work>/curve.json (PSNR / SSIM per evaluated epoch),
 <work>/quality_summary.json (gates, curve, SWA, stage 2) and
@@ -34,7 +44,8 @@ curve.json and stage2_eval.json, so a campaign can span several processes
 or machines (carry <work> across). A resumed stage-2 run takes the
 decoder, geo_feature and the embeddings from stage 1 again, as the JAX
 loop does (ROADMAP F10), so keep the stage-2 leg in one process. The
-frozen-net pose-recovery probe of scripts/quality_gate.py is not ported.
+pose-recovery leg's result is kept in pose_recovery.json beside its
+settings; wall.json records its steps and wall clock.
 """
 
 import argparse
@@ -44,6 +55,8 @@ import subprocess
 import sys
 import time
 from os.path import dirname, join
+
+import numpy as np
 
 REPO = dirname(dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -98,6 +111,127 @@ def steady_rate(metrics_path, since):
     return (steps[-1]["step"] - steps[0]["step"]) / (steps[-1]["t"] - steps[0]["t"])
 
 
+# the JAX leg's settings: w_rgl of the refinement steps, the floor epoch's
+# shuffle seed, the render check's shuffle seed and frame count
+POSE_W_RGL = 0.85
+FLOOR_SEED = 10**6
+RENDER_SEED, RENDER_FRAMES = 7, 8
+
+
+def pose_noise(shape, scale: float) -> np.ndarray:
+    """The perturbation of scripts/quality_gate.py: N(0, scale) from
+    default_rng(0), float32, zero on the global orientation (columns :3)."""
+    noise = np.random.default_rng(0).normal(scale=scale, size=shape).astype(np.float32)
+    noise[:, :3] = 0
+    return noise
+
+
+def pose_recovery(out1, epoch, device="cuda", pose_lr=2e-2, pose_epochs=40, noise_scale=0.3):
+    """The frozen-net pose-recovery leg on the stage-1 save `out1`/net/
+    iteration_`epoch` -> (the gate's record, with the JAX leg's keys; the
+    network's state_dict after the refinement). Every step runs the port's
+    train step (H-fwd, then H-bwd on the way back); the render check draws
+    through the stage-1 canonical cache (H-fwd)."""
+    from gaussianavatar_torch.config import Config
+    from gaussianavatar_torch.data.dataset import BatchLoader
+    from gaussianavatar_torch.engine.inference import make_cached_render_fn, precompute_canonical
+    from gaussianavatar_torch.engine.loop import DROP_KEYS, build_gt_bank
+    from gaussianavatar_torch.engine.optim import build_optimizer
+    from gaussianavatar_torch.engine.setup import setup_avatar
+    from gaussianavatar_torch.engine.train_step import TrainState, make_train_step
+    from gaussianavatar_torch.ops.rasterize import raster_config
+    from gaussianavatar_torch.ops.ssim import psnr
+
+    cfg = Config.load(join(out1, "cfg_args.json"))
+    cfg.opt.lr_net = 0.0
+    cfg.opt.lr_geomfeat = 0.0
+    cfg.opt.lr_pose = pose_lr
+    bundle = setup_avatar(cfg, device=device, train=True)
+    dataset, net = bundle.frames, bundle.net
+    H, W = dataset.image_hw()
+    bs = cfg.model.batch_size
+    state = TrainState(net, build_optimizer(net, cfg.opt, len(dataset) // bs, train_stage=1))
+    ckpt.load_train_state(out1, epoch, state)
+    white = (1.0, 1.0, 1.0)  # the JAX leg renders on white whatever the config
+    step = make_train_step(net, bundle.body_model, bundle.assets, cfg.opt, H, W, white,
+                           raster_config(cfg, train=True), build_gt_bank(dataset, device))
+
+    def run_epoch(seed):
+        tot, n = 0.0, 0
+        for batch in BatchLoader(dataset, bs, seed=seed):
+            feed = {k: v for k, v in batch.items() if k not in DROP_KEYS}
+            terms, _ = step(state, feed, POSE_W_RGL, 1.0, 0.0)
+            tot += float(terms["total"])
+            n += 1
+        return tot * bs / len(dataset), n
+
+    clone = lambda sd: {k: v.detach().clone() for k, v in sd.items()}
+    # the loss floor at the TRUE embeddings, on a copy of the state: the
+    # network, the optimizer's moments and counts and the iteration go back
+    true_sd = clone(net.state_dict())
+    opt_sd = {g: {k: clone(v) if isinstance(v, dict) else
+                  (v.clone() if torch.is_tensor(v) else v) for k, v in gs.items()}
+              for g, gs in state.optimizer.state_dict().items()}
+    iteration = state.iteration
+    loss_floor, _ = run_epoch(FLOOR_SEED)
+    net.load_state_dict(true_sd)
+    state.optimizer.load_state_dict(opt_sd)
+    state.iteration = iteration
+
+    true_pose = true_sd["pose_embedding"].cpu().numpy()
+    noise = pose_noise(true_pose.shape, noise_scale)
+    with torch.no_grad():
+        net.pose_embedding.copy_(torch.as_tensor(true_pose + noise))
+    pert = (net.pose_embedding.detach().clone(), net.transl_embedding.detach().clone())
+
+    n_steps, losses = 0, []
+    for i in range(pose_epochs):
+        loss, n = run_epoch(i)
+        losses.append(loss)
+        n_steps += n
+    refined_sd = clone(net.state_dict())
+    refined = refined_sd["pose_embedding"].cpu().numpy()
+    d_init = float(np.abs(noise).mean())
+    d_ref = float(np.abs(refined - true_pose).mean())
+    l0, l1 = losses[0], losses[-1]
+    recovered = (l0 - l1) / max(l0 - loss_floor, 1e-9)
+
+    # render space: the canonical cache of the frozen net at its true
+    # statistics, posed by each set of embeddings
+    net.load_state_dict(true_sd)
+    net.eval()
+    cache = precompute_canonical(net, bundle.assets)
+    render = make_cached_render_fn(net, bundle.body_model, bundle.assets, H, W, white,
+                                   raster_config(cfg, train=False))
+    tables = {"true": (true_sd["pose_embedding"], true_sd["transl_embedding"]), "pert": pert,
+              "refined": (refined_sd["pose_embedding"], refined_sd["transl_embedding"])}
+    batches = list(BatchLoader(dataset, bs, seed=RENDER_SEED))[:max(RENDER_FRAMES // bs, 1)]
+    pp, pr = [], []
+    for batch in batches:
+        feed = {k: v for k, v in batch.items() if k not in DROP_KEYS}
+        idx = torch.as_tensor(feed["pose_idx"]).long()
+        img = {name: render(cache, dict(feed, pose_data=pose[idx.to(pose.device)],
+                                        transl_data=transl[idx.to(transl.device)]))
+               for name, (pose, transl) in tables.items()}
+        pp.append(float(psnr(img["pert"], img["true"]).mean()))
+        pr.append(float(psnr(img["refined"], img["true"]).mean()))
+    psnr_pert, psnr_ref = sum(pp) / len(pp), sum(pr) / len(pr)
+    net.load_state_dict(refined_sd)
+
+    result = {
+        "init_err": d_init, "refined_err": d_ref, "steps": n_steps,
+        "loss_floor": loss_floor, "loss_first_epoch": l0, "loss_last_epoch": l1,
+        "recovered_fraction": recovered,
+        "render_psnr_perturbed": psnr_pert, "render_psnr_refined": psnr_ref,
+        "pass": bool(recovered >= 0.5 and (psnr_ref >= psnr_pert + 6.0 or psnr_ref >= 35.0)),
+    }
+    print(f"[pose-opt] frozen-net: pose err {d_init:.4f} -> {d_ref:.4f} (reported, not gated), "
+          f"loss {l0:.4f} -> {l1:.4f} (floor {loss_floor:.4f}, recovered {recovered:.0%}), "
+          f"render-vs-true PSNR {psnr_pert:.1f} -> {psnr_ref:.1f} dB ({n_steps} steps)",
+          flush=True)
+    return result, refined_sd
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--work", default=join(REPO, "output", "torch_quality_gate"))
@@ -118,6 +252,12 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--stage2", action="store_true",
                     help="then the stage-2 leg: export, posmaps, epochs // 2 of stage 2, eval")
+    ap.add_argument("--pose_opt", action="store_true",
+                    help="then the frozen-net pose-recovery leg on the stage-1 endpoint")
+    ap.add_argument("--pose_lr", type=float, default=2e-2,
+                    help="the leg's embedding learning rate (the JAX canonical gate: 1e-2)")
+    ap.add_argument("--pose_epochs", type=int, default=40)
+    ap.add_argument("--pose_noise", type=float, default=0.3)
     args = ap.parse_args(argv)
     canonical = args.query >= 512
     if args.gate_psnr is None:
@@ -283,6 +423,22 @@ def main(argv=None):
             "pass": s2["psnr"] >= final_psnr - margin,
         }
 
+    pose_wall = None
+    if args.pose_opt:
+        settings = {"epoch": epochs[-1], "pose_lr": args.pose_lr,
+                    "pose_epochs": args.pose_epochs, "pose_noise": args.pose_noise}
+        pose_path = join(work, "pose_recovery.json")
+        kept = json.load(open(pose_path)) if os.path.exists(pose_path) else None
+        if kept is None or kept["settings"] != settings:
+            t0 = time.time()
+            result, _ = pose_recovery(out1, epochs[-1], args.device, args.pose_lr,
+                                      args.pose_epochs, args.pose_noise)
+            kept = {"settings": settings, "result": result, "wall_s": time.time() - t0}
+            with open(pose_path, "w") as f:
+                json.dump(kept, f, indent=1)
+        summary["gates"]["pose_recovery"] = kept["result"]
+        pose_wall = {"steps": kept["result"]["steps"], "wall_s": kept["wall_s"]}
+
     # over the training runs of this work directory (a resumed campaign has several)
     def wall_of(rs):
         steps = sum(r["to_iteration"] - r["from_iteration"] for r in rs)
@@ -293,6 +449,8 @@ def main(argv=None):
     wall = {**wall_of(runs), "card": card_of(args.device)}
     if stage2_runs:
         wall["stage2"] = wall_of(stage2_runs)
+    if pose_wall:
+        wall["pose_recovery"] = pose_wall
     with open(join(work, "wall.json"), "w") as f:
         json.dump(wall, f, indent=1)
 

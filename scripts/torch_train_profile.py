@@ -20,9 +20,13 @@ phase 7. `--lpips` writes random weights of the exact LPIPS layout
 (ops/lpips.random_lpips_weights, seed 0) under a project directory and
 trains with them from the first step (`--lpips_start_iter 0`), as
 chip_smoke.py's phase 8; the weights stand in for pretrained ones, whose
-times are the same.
+times are the same. `--aiap` trains with the AIAP regulariser (`--use_aiap`,
+its term in `train::aiap` inside `train::loss`) and `--pos_encoding` with
+the decoder's uv inputs encoded (`--pos_encoding 1`), as chip_smoke.py's
+phase 9 (a).
 
     python3 scripts/torch_train_profile.py [--steps 20] [--warmup 10] [--stage 2] [--lpips]
+        [--aiap] [--pos_encoding]
 """
 
 import argparse
@@ -46,6 +50,8 @@ def main():
     ap.add_argument("--stage", type=int, default=1, choices=[1, 2])
     ap.add_argument("--lpips", action="store_true",
                     help="train with the LPIPS term (random weights of the exact layout)")
+    ap.add_argument("--aiap", action="store_true", help="train with --use_aiap")
+    ap.add_argument("--pos_encoding", action="store_true", help="train with --pos_encoding 1")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_train_profile: needs CUDA", file=sys.stderr)
@@ -80,6 +86,7 @@ def main():
                      **random_lpips_weights(0))
             argv = [a for a in argv if a != "--no_lpips"] + [
                 "--project_path", proj, "--lpips_start_iter", "0"]
+        argv += ["--use_aiap"] * args.aiap + ["--pos_encoding", "1"] * args.pos_encoding
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             train_cli.main(argv)
@@ -95,7 +102,10 @@ def main():
         [e for e in events if e.time_range.start < until], ("train::", "render::"), since)
     wall_ms = (until - since) / 1e3
     busy_ms = sum(kernels.values())
-    print(f"stage-{args.stage} training{' with LPIPS' if args.lpips else ''}, B=2 of 512x512, "
+    terms = [name for name, on in (("LPIPS", args.lpips), ("AIAP", args.aiap),
+                                   ("the positional encoding", args.pos_encoding)) if on]
+    print(f"stage-{args.stage} training{' with ' + ', '.join(terms) if terms else ''}, "
+          "B=2 of 512x512, "
           f"canonical widths, steps {args.warmup + 1}-"
           f"{args.warmup + n} under torch.profiler, per step, on {card}:")
     print(f"  {'range':26s} {'host ms':>9s} {'device ms':>10s}  (device: {how})")

@@ -90,12 +90,16 @@ def test_train_cli_then_render(tmp_path, capsys):
 
 
 def test_train_cli_refuses_what_is_not_ported(tmp_path):
+    """--dp, alone or beside other flags, raises and names the slice it
+    comes with (--pos_encoding 1 and --profile_dir train:
+    tests/test_torch_train_options.py)."""
     import pytest
 
     from gaussianavatar_torch import train
 
     base = ["-s", str(tmp_path), "-m", str(tmp_path / "out"), "--device", "cpu"]
-    for extra in (["--pos_encoding", "1"], ["--dp", "2"], ["--profile_dir", str(tmp_path)],
+    for extra in (["--dp", "2"], ["--dp", "4", "--pos_encoding", "1"],
+                  ["--dp", "2", "--profile_dir", str(tmp_path)],
                   ["--train_stage", "2", "--dp", "2", "--checkpoint_epochs", "10"]):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+        with pytest.raises(NotImplementedError, match="not ported yet.*multi-subject"):
             train.main(base + extra)
