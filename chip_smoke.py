@@ -71,7 +71,28 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      kernels at every step); (d) the pose-recovery leg of
      scripts/torch_quality_gate.py on phase 6's save for 2 epochs (its
      record's keys, exact launch counts, both kernels held on its last
-     batch; the gate's numbers printed, not enforced).
+     batch; the gate's numbers printed, not enforced);
+ 10. the scale-out entry points, the launch counts read around each:
+     (a) `python -m gaussianavatar_torch.train_multi` (its `main`) on 4
+     subjects of 512^2 from the port's writer (8, 8, 6 and 6 training
+     frames, 4 test frames each) at phase 5's widths, 20 steps (H-fwd and
+     H-bwd once per subject per step), the per-subject saves, metrics and
+     log PNGs, both kernels held against their plain versions on the last
+     step's batch, it/s x 4, subject-steps/s and peak memory beside phase
+     5's; the 4 subjects resumed for one epoch (3 steps: iteration and
+     optimizer counts go on); `eval` of a 6-frame subject (one H-fwd
+     launch); (b) `python -m gaussianavatar_torch.train --dp 2` on phase
+     5's data, two ranks on the one card over gloo, 10 steps against two
+     `--dp 1` runs from the same seed, and stage 2 from phase 7's
+     stage-1 save for 3 steps at the f32 and the bf16 decoder, where the
+     BatchNorm sync shows: the first step's loss and stage 1's 10-step
+     trajectory (at the f32 decoder) within the limits by TOL_DP_FIRST,
+     each exceeded by a control run whose ranks break one piece of the
+     step (RANK_FAULTS);
+     rank 0's last H-fwd and H-bwd inputs in each sound run held against
+     the plain versions; the ranks' launches summed from metrics.jsonl,
+     exact. Two ranks that share one card measure what the sharing
+     costs, not scaling.
 It prints one JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {...}}. It needs CUDA and the repository around it.
 """
@@ -1326,6 +1347,348 @@ def phase_train_terms(device, card, work, train_stats):
     return max(errs_fwd), max(errs_bwd), total
 
 
+# phase 10: subjects of the multi-subject run (name, training frames), the
+# run's steps, and the --dp runs' steps in stage 1 and stage 2
+MULTI_SUBJECTS = (("subjA", 8), ("subjB", 8), ("subjC", 6), ("subjD", 6))
+MULTI_STEPS = 20
+DP_STEPS, DP2_STEPS = 10, 3
+# --dp 2 against --dp 1 from one seed, relative differences of the global
+# batch's loss. Each limit sits between the sound run's reading and a
+# control run's, whose ranks break one piece of the data-parallel step
+# (RANK_FAULTS; the readings in PERF.md, scripts/torch_dp_trajectory.py):
+#  - the first step (the same parameters and frames; only the means over
+#    the ranks' shares and the kernels' batch shapes differ): stage 1 at
+#    the bf16 default against ranks that key depths for their own share,
+#    not the global batch; stage 2 at the f32 decoder against ranks whose
+#    BatchNorm takes its own share's statistics. At the bf16 default a
+#    GEMM rounds by its shape (a rank's B/2 rows against B), so stage 2's
+#    sound reading comes within 3x of that control's: the card cannot
+#    separate them there, and 1e-2 is a sanity bound only;
+#  - stage 1's 10-step trajectory at the f32 decoder, the largest
+#    difference over the steps, against ranks that skip the gradient
+#    all-reduce; a second --dp 1 run's spread is printed beside it. At
+#    the bf16 default the trajectory is printed only: the bf16 rounding of
+#    the BatchNorm-absorbed biases' noise (true gradient 0, Adam steps of
+#    +-lr) moves a sound run within a few x of the control.
+# tests/test_torch_frame_dp.py holds the step itself exactly and
+# tests/test_torch_multi_cli.py a whole CPU run.
+TOL_DP_FIRST = 2e-6
+TOL_DP_FIRST_S2 = 1e-5
+TOL_DP_FIRST_BF16 = 1e-2
+TOL_DP_TRAJ = 3e-2
+
+
+def _metrics(out):
+    records = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    steps = {r["step"]: r for r in records if "step" in r}
+    events = {r["event"]: r["value"] for r in records if "event" in r}
+    return steps, events
+
+
+class _LossRecorder:
+    """While active, every step that engine/loop.train makes keeps its
+    logged total (in a group, the global batch's)."""
+
+    def __enter__(self):
+        from gaussianavatar_torch.engine import loop
+
+        self.loop, self.real = loop, loop.make_train_step
+        self.totals = []
+
+        def make(*a, **kw):
+            step = self.real(*a, **kw)
+
+            def recorded(*sa, **skw):
+                terms, images = step(*sa, **skw)
+                self.totals.append(terms["total"])
+                return terms, images
+            return recorded
+
+        loop.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.make_train_step = self.real
+
+    def values(self):
+        import torch
+
+        return torch.stack(self.totals).float().cpu().tolist()
+
+
+# The ranks of a `train --dp 2` run are spawned processes, and each imports
+# this file as `__mp_main__` (the spawn start method runs the main script's
+# top level). With RANK_HOOK_ENV set to {"record": path, "fault": name or
+# null} (JSON), a rank installs _rank_hooks: rank 0 saves its last H-fwd and
+# H-bwd inputs and its step losses to `record`, and a control run breaks the
+# named piece of its step.
+RANK_HOOK_ENV = "CHIP_SMOKE_RANK_HOOK"
+
+
+def _no_grad_sync():
+    from gaussianavatar_torch.parallel import mesh
+
+    mesh.all_reduce_grads = lambda params, grp: None
+
+
+def _no_bn_sync():
+    from gaussianavatar_torch.parallel import mesh
+
+    mesh.syncs_batch_stats = lambda: False
+
+
+def _rank_depth_key():
+    from gaussianavatar_torch.engine import train_step
+
+    real = train_step.rasterize_views
+    train_step.rasterize_views = lambda *a, config, **kw: real(
+        *a, config=config._replace(key_views=0), **kw)
+
+
+RANK_FAULTS = {"no_grad_sync": _no_grad_sync, "no_bn_sync": _no_bn_sync,
+               "rank_depth_key": _rank_depth_key}
+
+
+def _rank_hooks(spec):
+    import torch
+
+    from gaussianavatar_torch.engine import loop
+    from gaussianavatar_torch.parallel import mesh
+
+    if spec["fault"]:
+        RANK_FAULTS[spec["fault"]]()
+    real_train = loop.train
+    detach = lambda x: x.detach() if torch.is_tensor(x) else x
+
+    def train(*a, **kw):
+        with _KernelRecorder() as kernels, _LossRecorder() as losses:
+            state = real_train(*a, **kw)
+        if mesh.group().rank == 0:
+            rec = {k: tuple(map(detach, v)) if isinstance(v, tuple)
+                   else {kk: detach(vv) for kk, vv in v.items()} for k, v in kernels.rec.items()}
+            torch.save({"blend": rec, "totals": losses.values()}, spec["record"])
+        return state
+
+    loop.train = train
+
+
+def _dp_run(label, argv_for, out, dp, n_steps, fault=None):
+    """`train` with `argv_for(out)` for n_steps with --dp dp (2: two ranks on
+    the one card, recorded through _rank_hooks; `fault` breaks a piece of
+    their step) -> {"totals": the global batch's loss at every step,
+    "launches": summed over the ranks (exact: each rank launches each
+    kernel once per step), "steps": metrics.jsonl's, "wall": s, "blend":
+    rank 0's last H-fwd and H-bwd inputs (dp 2)}."""
+    import torch
+
+    from gaussianavatar_torch import train as train_cli
+
+    argv = argv_for(out) + ["--dp", str(dp), "--max_steps", str(n_steps)]
+    if dp == 1:
+        with _LossRecorder() as losses:
+            _, counts, wall = _run_counted(train_cli.main, argv)
+        run = {"totals": losses.values(), "blend": None}
+    else:
+        record = os.path.join(out, "rank0_record.pt")
+        os.environ[RANK_HOOK_ENV] = json.dumps({"record": record, "fault": fault})
+        try:
+            _, counts, wall = _run_counted(train_cli.main, argv)
+        finally:
+            del os.environ[RANK_HOOK_ENV]
+        run = torch.load(record, map_location="cuda", weights_only=False)
+    steps, events = _metrics(out)
+    summed = events.get("kernel_launches")
+    what = f"{label} --dp {dp}" + (f" ({fault})" if fault else "")
+    print(f"  {what}: launches {summed} (from metrics.jsonl, summed over the ranks), "
+          f"{wall:.1f} s in all (setup included)")
+    for name in TRAIN_KERNELS:
+        if summed is None or summed[name] != dp * n_steps:
+            _fail(f"{what} launched {name} {summed and summed[name]} times, not once per "
+                  "rank per step")
+    if dp == 1 and counts != summed:
+        _fail(f"{what}: the logged launches {summed} are not the counted {counts}")
+    if len(run["totals"]) != n_steps or not all(map(math.isfinite, run["totals"])):
+        _fail(f"{what}: {len(run['totals'])} step losses recorded, or not finite")
+    return {**run, "launches": summed, "steps": steps, "wall": wall}
+
+
+def _apart(a, b, steps=None):
+    """The largest relative difference of run b's step losses from run a's
+    (over the first `steps`, or all)."""
+    return max(abs(y - x) / abs(x) for x, y in list(zip(a["totals"], b["totals"]))[:steps])
+
+
+def phase_scale_out(device, card, work, train_stats):
+    """Phase 10: (a) multi-subject training, resume and eval; (b) --dp 2 on
+    the one card against --dp 1, stages 1 and 2. -> (H-fwd's error, H-bwd's
+    error, launches)."""
+    import shutil
+
+    import torch
+
+    from gaussianavatar_torch import eval as eval_cli, train_multi
+    from gaussianavatar_torch.data.synthetic_writer import write_synthetic_dataset
+    from gaussianavatar_torch.engine import checkpoint as ckpt
+
+    total = {}
+
+    def add(counts):
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+
+    # (a) 4 subjects of 512^2, unequal frame counts
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "multi_data")
+    written = {}
+    for name, n in MULTI_SUBJECTS:
+        d = os.path.join(root, name)
+        if n in written:
+            shutil.copytree(written[n], d)
+        else:
+            write_synthetic_dataset(d, n_train=n, n_test=4, image_size=512, device=device)
+            written[n] = d
+    S = len(MULTI_SUBJECTS)
+    print(f"  wrote {S} subjects of 512x512 ({', '.join(f'{n}: {k}' for n, k in MULTI_SUBJECTS)}"
+          f" training frames, 4 test frames each) in {time.perf_counter() - t_phase:.1f} s")
+    out = os.path.join(work, "multi_out")
+    argv = ["--sources", *(os.path.join(root, n) for n, _ in MULTI_SUBJECTS), "-m", out,
+            "--train_stage", "1", "--dataset_type", "synthetic", "--pose_op_start_iter", "0"]
+    torch.cuda.reset_peak_memory_stats()
+    with _KernelRecorder() as recorder:
+        _, counts, wall = _run_counted(train_multi.main, argv + ["--max_steps", str(MULTI_STEPS)])
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  kernel launches in the multi-subject run: {counts} ({MULTI_STEPS} steps x {S} "
+          "subjects)")
+    for name in TRAIN_KERNELS:
+        if counts[name] != MULTI_STEPS * S:
+            _fail(f"the multi-subject run launched {name} {counts[name]} times, not once per "
+                  "subject per step")
+    add(counts)
+    spe = min(n for _, n in MULTI_SUBJECTS) // 2      # the fewest steps of any subject, B=2
+    epoch = -(-MULTI_STEPS // spe)
+    rates, losses = [], []
+    for name, n in MULTI_SUBJECTS:
+        d = os.path.join(out, name)
+        steps, events = _metrics(d)
+        saved = torch.load(os.path.join(ckpt.ckpt_dir(d, epoch), ckpt.TRAIN_NAME),
+                           weights_only=True)
+        net = torch.load(os.path.join(ckpt.ckpt_dir(d, epoch), ckpt.CKPT_NAME),
+                         weights_only=True)
+        if sorted(steps) != [1, 10, MULTI_STEPS] or saved["iteration"] != MULTI_STEPS \
+                or net["pose_embedding"].shape[0] != n \
+                or not os.path.exists(os.path.join(d, "log", "00001_pred.png")) \
+                or events.get("kernel_launches") != counts:
+            _fail(f"subject {name}: metrics, save or log PNG not as expected")
+        if not all(math.isfinite(r["total"]) for r in steps.values()):
+            _fail(f"subject {name}: loss not finite")
+        rates.append((MULTI_STEPS - 10) / (steps[MULTI_STEPS]["t"] - steps[10]["t"]))
+        losses.append((steps[1]["total"], steps[MULTI_STEPS]["total"]))
+    rate = rates[0]
+    print(f"  multi-subject training: {rate:.2f} it/s x {S} subjects steady (steps 10-"
+          f"{MULTI_STEPS}) = {rate * S:.2f} subject-steps/s (phase 5: {train_stats['rate']:.2f} "
+          f"it/s), peak memory {peak_gb:.2f} GiB (phase 5 {train_stats['peak_gb']:.2f}), loss "
+          + ", ".join(f"{a:.4f} -> {b:.4f}" for a, b in losses)
+          + f"; {wall:.1f} s in all (setup included), on {card}")
+    fwd_err, bwd_err, _ = _hold_train_batch(recorder.rec, card, "multi-subject train batch "
+                                            f"(subject {MULTI_SUBJECTS[-1][0]})", timed=False)
+
+    # resume every subject for one epoch
+    _, counts, wall = _run_counted(train_multi.main, argv + [
+        "--checkpoint_epochs", str(epoch), "--epochs", str(epoch + 1)])
+    add(counts)
+    for name, _ in MULTI_SUBJECTS:
+        saved = torch.load(os.path.join(ckpt.ckpt_dir(os.path.join(out, name), epoch + 1),
+                                        ckpt.TRAIN_NAME), weights_only=True)
+        if saved["iteration"] != MULTI_STEPS + spe \
+                or saved["optimizer"]["net"]["count"] != MULTI_STEPS + spe:
+            _fail(f"subject {name}: the resumed run did not go on from iteration {MULTI_STEPS}")
+    print(f"  resumed {S} subjects from epoch {epoch}: {spe} steps to iteration "
+          f"{MULTI_STEPS + spe}, launches {counts}, {wall:.1f} s in all")
+    if any(counts[name] != spe * S for name in TRAIN_KERNELS):
+        _fail("the resumed multi-subject run did not launch each kernel once per subject per "
+              "step")
+
+    subject = MULTI_SUBJECTS[-1][0]
+    result, counts, wall = _run_counted(eval_cli.main, ["-m", os.path.join(out, subject)])
+    print(f"  eval of {subject}: {result['frames']} test frames, PSNR {result['psnr']:.3f} SSIM "
+          f"{result['ssim']:.5f}, launches {counts}, {wall:.1f} s in all")
+    if not math.isfinite(result["psnr"]) or counts["blend_fwd"] != 1 or counts["blend_bwd"]:
+        _fail("the multi-subject eval is not finite or did not launch H-fwd once")
+    add(counts)
+    print(f"  (a) in {time.perf_counter() - t_phase:.1f} s")
+
+    # (b) --dp 2 on the one card against --dp 1, stage 1 then stage 2, each
+    # beside control runs; every check once every reading is printed.
+    # `checks`: (what, (sound, control or None), limit)
+    t_phase = time.perf_counter()
+    data = os.path.join(work, "data")
+    checks, holds = [], []
+    run = lambda label, argv, name, dp, n, fault=None: _dp_run(
+        label, argv, os.path.join(work, f"dp_{name}"), dp, n, fault)
+    s1 = lambda out: _train_argv(data, out)
+    dp1, dp2 = (run("stage 1", s1, f"s1_dp{dp}", dp, DP_STEPS) for dp in (1, 2))
+    own_key = run("stage 1", s1, "s1_rank_depth_key", 2, 1, "rank_depth_key")
+    s1_f32 = lambda out: s1(out) + ["--bf16_decoder", "0"]
+    dp1_f32, dp1b_f32, dp2_f32 = (run("stage 1 (f32 decoder)", s1_f32, f"s1_f32_{name}", dp,
+                                      DP_STEPS) for name, dp in (("dp1", 1), ("dp1_again", 1),
+                                                                 ("dp2", 2)))
+    no_grad = run("stage 1 (f32 decoder)", s1_f32, "s1_f32_no_grad_sync", 2, DP_STEPS,
+                  "no_grad_sync")
+    for r in (dp1, dp2, dp1_f32, dp1b_f32, dp2_f32):
+        add(r["launches"])
+    holds.append(("stage 1", dp2))
+    first = (_apart(dp1, dp2, 1), _apart(dp1, own_key, 1))
+    traj = (_apart(dp1_f32, dp2_f32), _apart(dp1_f32, no_grad))
+    print(f"  stage 1, step 1 vs --dp 1: --dp 2 {first[0]:.2e}, ranks keying depth for their "
+          f"own share {first[1]:.2e} (limit {TOL_DP_FIRST:g}); at the f32 decoder "
+          f"{_apart(dp1_f32, dp2_f32, 1):.2e}")
+    print(f"  stage 1 (f32 decoder), steps 1-{DP_STEPS} vs --dp 1, largest: --dp 2 "
+          f"{traj[0]:.2e}, a second --dp 1 run {_apart(dp1_f32, dp1b_f32):.2e}, ranks without "
+          f"the gradient all-reduce {traj[1]:.2e} (limit {TOL_DP_TRAJ:g}); at the bf16 default "
+          f"(printed only) --dp 2 {_apart(dp1, dp2):.2e}")
+    checks += [("stage 1 first step", first, TOL_DP_FIRST),
+               (f"stage 1 (f32 decoder) steps 1-{DP_STEPS}", traj, TOL_DP_TRAJ)]
+    rate = lambda r: (DP_STEPS - 1) / (r["steps"][DP_STEPS]["t"] - r["steps"][1]["t"])
+    print(f"  stage 1, steps 1-{DP_STEPS}: {rate(dp1):.2f} it/s (--dp 1) vs {rate(dp2):.2f} "
+          f"global it/s (--dp 2, two ranks sharing the card: the cost of sharing, no "
+          f"scaling), on {card}")
+
+    out1 = os.path.join(work, "out")
+    stage1 = ckpt.ckpt_dir(out1, ckpt.latest_epoch(out1, ckpt.TRAIN_NAME))
+    s2 = lambda out: ["-s", data, "-m", out, "--train_stage", "2", "--stage1_out_path", stage1,
+                      "--dataset_type", "synthetic", "--no_lpips"]
+    for dtype, extra, tol, separates in (("f32", ["--bf16_decoder", "0"], TOL_DP_FIRST_S2, True),
+                                         ("bf16", [], TOL_DP_FIRST_BF16, False)):
+        label = f"stage 2 ({dtype} decoder)"
+        argv = lambda out: s2(out) + extra
+        r1, r2 = (run(label, argv, f"s2_{dtype}_dp{dp}", dp, DP2_STEPS) for dp in (1, 2))
+        no_bn = run(label, argv, f"s2_{dtype}_no_bn_sync", 2, 1, "no_bn_sync")
+        add(r1["launches"])
+        add(r2["launches"])
+        holds.append((label, r2))
+        first = (_apart(r1, r2, 1), _apart(r1, no_bn, 1))
+        print(f"  {label}, step 1 vs --dp 1: --dp 2 {first[0]:.2e}, ranks with their own "
+              f"share's BatchNorm statistics {first[1]:.2e} (limit {tol:g}"
+              + ("" if separates else ", a sanity bound") + f"); steps 1-{DP2_STEPS} "
+              f"{_apart(r1, r2):.2e}; {DP2_STEPS} steps in {r1['wall']:.1f} s (--dp 1) and "
+              f"{r2['wall']:.1f} s (--dp 2, set-up and the spawn included)")
+        checks.append((f"{label} first step", first if separates else (first[0], None), tol))
+
+    # rank 0's last H-fwd and H-bwd inputs against the plain versions
+    for label, r in holds:
+        f_err, b_err, _ = _hold_train_batch(r["blend"], card, f"{label} --dp 2, rank 0's last "
+                                            "batch", timed=False)
+        fwd_err, bwd_err = max(fwd_err, f_err), max(bwd_err, b_err)
+    for what, (sound, broken), tol in checks:
+        if not sound <= tol:
+            _fail(f"{what}: --dp 2 is {sound:.2e} from --dp 1, over the limit {tol:g}")
+        if broken is not None and not broken > tol:
+            _fail(f"{what}: the control run ({broken:.2e}) is within the limit {tol:g}, which "
+                  "therefore separates nothing")
+    print(f"  (b) in {time.perf_counter() - t_phase:.1f} s")
+    return fwd_err, bwd_err, total
+
+
 def main():
     try:
         import torch
@@ -1365,17 +1728,24 @@ def main():
         t9 = time.perf_counter()
         p9_fwd_err, p9_bwd_err, p9_counts = phase_train_terms(device, card, work, train_stats)
         print(f"  phase 9 in {time.perf_counter() - t9:.1f} s")
+        print("phase 10: the scale-out entry points: 4 subjects through train_multi, resume "
+              "and eval; --dp 2 on the one card against --dp 1, stages 1 and 2")
+        t10 = time.perf_counter()
+        p10_fwd_err, p10_bwd_err, p10_counts = phase_scale_out(device, card, work, train_stats)
+        print(f"  phase 10 in {time.perf_counter() - t10:.1f} s")
     # launches: each main path's run, added (the render's H-fwd, training's,
     # then the resumed run's, eval's and the novel view's, then stage 2's,
-    # then phase 8's, then phase 9's)
+    # then phase 8's, then phase 9's, then phase 10's)
     fwd["launches"] += (train_counts["blend_fwd"] + rest_counts["blend_fwd"]
                         + s2_counts["blend_fwd"] + p8_counts["blend_fwd"]
-                        + p9_counts["blend_fwd"])
+                        + p9_counts["blend_fwd"] + p10_counts["blend_fwd"])
     bwd["launches"] += (rest_counts["blend_bwd"] + s2_counts["blend_bwd"]
-                        + p8_counts["blend_bwd"] + p9_counts["blend_bwd"])
+                        + p8_counts["blend_bwd"] + p9_counts["blend_bwd"]
+                        + p10_counts["blend_bwd"])
     fwd["max_abs_err"] = max(fwd["max_abs_err"], train_fwd_err, s2_fwd_err, p8_fwd_err,
-                             p9_fwd_err)
-    bwd["max_abs_err"] = max(bwd["max_abs_err"], s2_bwd_err, p8_bwd_err, p9_bwd_err)
+                             p9_fwd_err, p10_fwd_err)
+    bwd["max_abs_err"] = max(bwd["max_abs_err"], s2_bwd_err, p8_bwd_err, p9_bwd_err,
+                             p10_bwd_err)
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [fwd, bwd]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1383,6 +1753,9 @@ def main():
                                              "count": torch.cuda.device_count()}}))
     return 0
 
+
+if __name__ == "__mp_main__" and os.environ.get(RANK_HOOK_ENV):
+    _rank_hooks(json.loads(os.environ[RANK_HOOK_ENV]))
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -41,6 +41,11 @@ groups' leaves masked out.
   - `jax_trees_from_port(net_sd, optimizer_sd, template)`: the inverse, into
     a JAX TrainState's trees built by the caller (`build_optimizer(...).init`
     for the optax state) and returned filled, as numpy.
+  - `subject_slot(tree, s, n_frames)`: slot s of a subject-stacked JAX tree
+    (`parallel.multi_subject.stack_subjects`, a grid step's state), the
+    per-frame embedding rows (and their moments) cut back to the subject's
+    own count, ready for the functions above: a JAX multi-subject state
+    becomes S port subjects.
 
 Trees are nested dicts, tuples and NamedTuples of numpy arrays (e.g.
 `jax.tree.map(np.asarray, state.opt_state)`); a leaf that is not an array
@@ -170,6 +175,23 @@ def _opt_leaf(path: Tuple) -> Tuple[str, str, Tuple]:
     if path[-1] in ("count", "step"):
         return group, "count", ()
     raise ValueError(f"unexpected optax state leaf {path}")
+
+
+_EMBED_KEYS = ("pose_embedding", "transl_embedding")
+
+
+def subject_slot(tree, s: int, n_frames: Optional[int] = None):
+    """Every array leaf's slot `s` along its leading (subject) axis; with
+    `n_frames` the pose / transl embedding tables and their moments keep
+    their first n_frames rows (the JAX package pads every subject's tables
+    to the largest subject's frame count)."""
+    def take(path, a):
+        a = np.asarray(np.asarray(a)[s])
+        if n_frames is not None and path and path[-1] in _EMBED_KEYS and a.ndim >= 2:
+            a = a[:n_frames]
+        return a
+
+    return _map(take, tree)
 
 
 def state_dict_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:

@@ -7,7 +7,9 @@ with `--checkpoint_epochs` needs. (The JAX package keeps the whole
 TrainState in one `net.ckpt`.) A JAX checkpoint converts with
 scripts/convert_jax_checkpoint_torch.py, a port checkpoint back with
 scripts/convert_torch_checkpoint_jax.py. `stage_load` boots stage 2 from a
-stage-1 save.
+stage-1 save. A multi-subject run saves S such checkpoints, one under each
+subject's model path (`save_stacked_checkpoint`), and resumes from them
+(`load_stacked_checkpoint`).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from __future__ import annotations
 import os
 import re
 from os.path import join
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -64,6 +66,21 @@ def load_train_state(model_path: str, epoch: int, state):
     return state
 
 
+def save_stacked_checkpoint(model_paths: Sequence[str], epoch: int, states: Sequence) -> list:
+    """S subjects' TrainStates as S ordinary single-subject saves, one per
+    model path (counterpart of the JAX package's save_stacked_checkpoint):
+    `python -m gaussianavatar_torch.eval -m <path>` and single-subject
+    resume take each one as it is. Each subject keeps its own embedding
+    rows, so nothing is trimmed."""
+    return [save_train_state(mp, epoch, st) for mp, st in zip(model_paths, states)]
+
+
+def load_stacked_checkpoint(model_paths: Sequence[str], epoch: int, states: Sequence) -> list:
+    """Inverse of save_stacked_checkpoint: each subject's TrainState restored
+    in place from its own `iteration_{epoch}`."""
+    return [load_train_state(mp, epoch, st) for mp, st in zip(model_paths, states)]
+
+
 def load_checkpoint(model_path: str, epoch: int, net: nn.Module) -> nn.Module:
     path = join(ckpt_dir(model_path, epoch), CKPT_NAME)
     if not os.path.exists(path):
@@ -95,6 +112,10 @@ def stage_load(net: nn.Module, stage1_path: str) -> nn.Module:
     with torch.no_grad():
         for key, value in saved.items():
             if key.startswith(STAGE1_PREFIXES):
+                if own[key].shape != value.shape:
+                    raise ValueError(f"{key}: {tuple(value.shape)} in {path}, "
+                                     f"{tuple(own[key].shape)} in this network (a stage-1 "
+                                     "save of a subject with another frame count?)")
                 own[key].copy_(value)
     return net
 

@@ -1,7 +1,8 @@
 """The training log (counterpart of MetricsLogger in
 gaussianavatar_tpu/engine/logging_utils.py): one JSON record per line in
 `<model_path>/metrics.jsonl`, scalars by step and named run events. The
-JAX package's optional TensorBoard mirror is not ported."""
+JAX package's optional TensorBoard mirror is not ported. In a data-parallel
+run rank 0 alone writes (`open_logger`)."""
 
 from __future__ import annotations
 
@@ -30,3 +31,21 @@ class MetricsLogger:
 
     def close(self):
         self._f.close()
+
+
+class NullLogger:
+    """A MetricsLogger that writes nothing: a data-parallel run's ranks
+    other than 0."""
+
+    def log(self, step: int, scalars: Dict[str, float]):
+        pass
+
+    def log_event(self, name: str, value):
+        pass
+
+    def close(self):
+        pass
+
+
+def open_logger(model_path: str, write: bool):
+    return MetricsLogger(model_path) if write else NullLogger()

@@ -20,7 +20,19 @@ Left out, because the port does not need them: the TPU capacity machinery
 (need tables and their retunes, chunk budgets, cascade tiers, footprint
 adaptation; the port's blend walks every tile's whole range),
 `steps_per_dispatch` scans and `device_prefetch` (dispatch-latency work for
-the TPU's host link). Left for the next slice: `--dp`.
+the TPU's host link).
+
+Inside a data-parallel group (parallel/mesh.py; `train.py --dp N` starts
+one) every rank holds the GT bank (and in stage 2 the posmap bank), draws
+the same shuffle and steps on its shard of each global batch; the network
+is broadcast from rank 0 after init or resume. The iteration, the gates,
+the regulariser decay and the learning-rate schedule follow the global
+step, and it/s counts global steps, as in the JAX `train(..., dp)`. Rank 0
+alone writes `cfg_args.json`, `metrics.jsonl`, the debug dumps (its shard
+of the batch) and the checkpoints; every rank resumes from the same save.
+At the end the run logs its kernel launches, summed over the ranks, as the
+`kernel_launches` event (a spawned rank's counts are not visible to the
+process that started it).
 
 With `use_aiap` the run builds the AIAP neighbour graph once, on the host
 (`host_knn`, k=5 over the valid canonical query points), as the JAX loop
@@ -41,13 +53,15 @@ from gaussianavatar_torch.config import Config
 from gaussianavatar_torch.data.dataset import BatchLoader
 from gaussianavatar_torch.engine import checkpoint as ckpt
 from gaussianavatar_torch.engine.inference import frame_gaussians, load_fixed_inp, require_device
-from gaussianavatar_torch.engine.logging_utils import MetricsLogger
+from gaussianavatar_torch.engine.logging_utils import open_logger
 from gaussianavatar_torch.engine.optim import build_optimizer
 from gaussianavatar_torch.engine.setup import setup_avatar
 from gaussianavatar_torch.engine.train_step import TrainState, make_train_step
 from gaussianavatar_torch.ops.knn import host_knn
 from gaussianavatar_torch.ops.lpips import lpips_status
 from gaussianavatar_torch.ops.rasterize import raster_config
+from gaussianavatar_torch.parallel import mesh
+from gaussianavatar_torch.utils.cuda_build import LAUNCHES, launches_since
 from gaussianavatar_torch.utils.obj_io import save_ply_points
 
 # per-item keys the step does not read
@@ -174,9 +188,13 @@ def train(
     `lpips_note` if given, else `lpips_status` of the project."""
     require_device(device)
     mp, opt = cfg.model, cfg.opt
-    os.makedirs(join(mp.model_path, "log"), exist_ok=True)
-    cfg.save(join(mp.model_path, "cfg_args.json"))
-    logger = MetricsLogger(mp.model_path)
+    grp = mesh.group()
+    lead = grp is None or grp.rank == 0
+    if lead:
+        os.makedirs(join(mp.model_path, "log"), exist_ok=True)
+        cfg.save(join(mp.model_path, "cfg_args.json"))
+    logger = open_logger(mp.model_path, lead)
+    launches_before = dict(LAUNCHES)
     try:
         # "active" only when the term is in the loss; a caller's note (e.g.
         # "disabled (--no_lpips)") wins over probing the files again
@@ -202,6 +220,7 @@ def train(
         net.train()
         state = TrainState(net, build_optimizer(net, opt, steps_per_epoch, mp.train_stage))
         epoch_start = restore_state(state, mp, checkpoint_epochs)
+        mesh.replicate(net, grp)
         first_it = state.iteration + 1
         step = make_train_step(net, bundle.body_model, bundle.assets, opt, H, W, bg,
                                raster_config(cfg, train=True), gt_bank,
@@ -217,10 +236,11 @@ def train(
             pose_gate = pose_opt_gate_value(mp.train_stage, epoch, opt)
             lpips_gate = lpips_gate_value(lpips_fn is not None, epoch, opt)
             for batch in loader:
-                feed = {k: v for k, v in batch.items() if k not in DROP_KEYS}
+                feed = mesh.shard_batch({k: v for k, v in batch.items() if k not in DROP_KEYS},
+                                        grp)
                 terms, images = step(state, feed, w_rgl, pose_gate, lpips_gate)
                 it = state.iteration
-                if (it - 1) % opt.log_iter == 0:
+                if lead and (it - 1) % opt.log_iter == 0:
                     # the debug dumps (before the clock starts, so it/s leaves them out)
                     log_dir = join(mp.model_path, "log")
                     save_image_grid(join(log_dir, f"{it:05d}_pred.png"), images.cpu().numpy())
@@ -246,13 +266,15 @@ def train(
                 if max_steps is not None and it >= max_steps:
                     done = True
                     break
-            if epoch > saving_epochs[0] and epoch % mp.save_epoch == 0:
+            if lead and epoch > saving_epochs[0] and epoch % mp.save_epoch == 0:
                 print(f"[Epoch {epoch}] saving model")
                 ckpt.save_train_state(mp.model_path, epoch, state)
             if done:
                 break
 
-        ckpt.save_train_state(mp.model_path, min(epoch, opt.epochs), state)
+        if lead:
+            ckpt.save_train_state(mp.model_path, min(epoch, opt.epochs), state)
+        logger.log_event("kernel_launches", mesh.sum_counts(launches_since(launches_before), grp))
         return state
     finally:
         logger.close()

@@ -20,8 +20,20 @@ gaussianavatar_tpu/engine/train_step.py), stage 1 and stage 2:
        with a neighbour graph (`aiap_nn`, --use_aiap), + lambda_aiap *
        aiap_loss(query points + offsets, world points) over the valid
        points (logged as `aiap`)
-    -> backward -> embedding gradients times the pose-optimization gate
+    -> backward -> inside a data-parallel group (parallel/mesh.py), every
+       gradient all-reduced to its mean over the ranks
+    -> embedding gradients times the pose-optimization gate
     -> the optimizer groups (engine/optim.py).
+
+Inside a group each rank steps on its shard of the global batch; the
+BatchNorm layers take the global batch's statistics (stage 1's one decode,
+alike on every rank, too: its synced statistics equal its own); the
+binning budgets its depth key for the global batch
+(RasterizeConfig.key_views), so a rank's frames blend in the order the
+whole batch's would; the logged terms are the
+global batch's (parallel/mesh.all_reduce_terms). SparseAdam then finds the
+touched embedding rows in the all-reduced gradient: the union over the
+ranks, as in the JAX package's psum.
 
 Where the JAX step returns a new state, this one updates `TrainState` in
 place: the network's parameters and BatchNorm statistics, the optimizer's
@@ -47,6 +59,7 @@ from gaussianavatar_torch.models.body import BodyModel
 from gaussianavatar_torch.ops.knn import aiap_loss
 from gaussianavatar_torch.ops.rasterize import RasterizeConfig, rasterize_views
 from gaussianavatar_torch.ops.ssim import l1_loss, ssim
+from gaussianavatar_torch.parallel import mesh
 
 
 @dataclass
@@ -82,6 +95,7 @@ def make_train_step(
     if train_stage == 2 and inp_bank is None:
         raise ValueError("stage 2 needs the input posmap bank (inp_bank)")
     device = assets.query_points.device
+    grp = mesh.group()
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=device)
     embeddings = (net.pose_embedding, net.transl_embedding)
 
@@ -118,7 +132,8 @@ def make_train_step(
         images, overflow = rasterize_views(
             world, shs, scales3, rotations, opacity,
             b["world_view_transform"], b["full_proj_transform"],
-            b["tan_fovx"].reshape(B), b["tan_fovy"].reshape(B), H, W, bg, config=raster_cfg)
+            b["tan_fovx"].reshape(B), b["tan_fovy"].reshape(B), H, W, bg,
+            config=raster_cfg if grp is None else raster_cfg._replace(key_views=B * grp.dp))
 
         with record_function("train::loss"):
             l1 = (1.0 - opt_cfg.lambda_dssim) * l1_loss(images, gt)
@@ -151,6 +166,9 @@ def make_train_step(
                 terms["vgg"] = vgg
         with record_function("train::backward"):
             loss.backward()
+        if grp is not None:
+            with record_function("train::all_reduce"):
+                mesh.all_reduce_grads(net.parameters(), grp)
 
         with record_function("train::optimizer"):
             # the epoch gate of pose optimization: zero gradients touch no row
@@ -160,6 +178,9 @@ def make_train_step(
             state.optimizer.step()
         state.iteration = iteration
         terms.update(total=loss, raster_overflow=overflow.to(torch.float32))
-        return {k: v.detach() for k, v in terms.items()}, images.detach()
+        terms = {k: v.detach() for k, v in terms.items()}
+        if grp is not None:
+            terms = mesh.all_reduce_terms(terms, grp)
+        return terms, images.detach()
 
     return train_step

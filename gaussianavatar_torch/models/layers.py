@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gaussianavatar_torch.parallel import mesh
+
 BN_EPS = 1e-5  # flax BatchNorm epsilon as the JAX package sets it
 
 
@@ -40,7 +42,12 @@ class FlaxBatchNorm(nn.Module):
     every axis but the features) and, unless autograd is off, moves the
     running statistics by flax's rule with momentum 0.9 (torch.nn.BatchNorm
     would use momentum 0.1 and the unbiased variance). A render under
-    torch.no_grad leaves them as they are."""
+    torch.no_grad leaves them as they are.
+
+    Inside a data-parallel group (parallel/mesh.py) a training call with
+    autograd on takes the statistics of the global batch: every channel's
+    sum, sum of squares and count, summed over the ranks by an all-reduce
+    whose backward sums the statistics' gradient over the ranks."""
 
     def __init__(self, num_features: int, affine: bool = True, feature_dim: int = -1):
         super().__init__()
@@ -60,9 +67,17 @@ class FlaxBatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             axes = [d for d in range(x.dim()) if d != self.feature_dim % x.dim()]
-            mean = xf.mean(dim=axes)
+            if mesh.syncs_batch_stats() and torch.is_grad_enabled():
+                # the global batch's statistics: each channel's sum, sum of
+                # squares and count over every rank
+                C = xf.shape[self.feature_dim]
+                n = xf.new_tensor([xf.numel() / C])
+                sums = mesh.global_sum(torch.cat([xf.sum(dim=axes), (xf * xf).sum(dim=axes), n]))
+                mean, mean2 = sums[:C] / sums[-1], sums[C:2 * C] / sums[-1]
+            else:
+                mean, mean2 = xf.mean(dim=axes), (xf * xf).mean(dim=axes)
             # jnp.maximum, as flax: an even split of the gradient at a tie
-            var = torch.maximum((xf * xf).mean(dim=axes) - mean * mean, torch.zeros_like(mean))
+            var = torch.maximum(mean2 - mean * mean, torch.zeros_like(mean))
             if torch.is_grad_enabled():
                 with torch.no_grad():
                     self.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)

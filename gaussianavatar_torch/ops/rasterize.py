@@ -27,6 +27,9 @@ class RasterizeConfig(NamedTuple):
     tile_size: int = 32
     max_tiles_per_gaussian: int = 16  # footprint cap M (a perfect square)
     backend: str = "tile"             # "tile" (H-fwd / H-bwd) or "brute" (rasterize_ref)
+    # the batch the depth key's bits are budgeted for (0: the batch rendered);
+    # a data-parallel rank gives the global batch (ops/rasterize_tile._bin_gaussians)
+    key_views: int = 0
 
 
 def raster_config(cfg, train: bool = False) -> RasterizeConfig:

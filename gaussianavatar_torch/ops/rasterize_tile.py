@@ -102,16 +102,20 @@ def _bin_gaussians(
     ts: int,
     MW: int,
     MH: int,
+    key_views: int = 0,
 ) -> BinContext:
     """Bin a whole batch with ONE sort. Key: ((b*T + tile) << depth_bits) |
     depth_quant, the top depth_bits of the positive float pattern of the
-    depth (monotone); the row index breaks ties."""
+    depth (monotone); the row index breaks ties. depth_bits is budgeted for
+    max(B, key_views) views: a data-parallel rank that renders its share of
+    a batch of key_views views quantizes depths as the whole batch would,
+    so its frames blend in the order the unsharded batch blends them."""
     B, N = projs.depths.shape
     txn, tyn = _cdiv(width, ts), _cdiv(height, ts)
     T = txn * tyn
     M = MW * MH
     dev = projs.depths.device
-    depth_bits = depth_key_bits(B * T)
+    depth_bits = depth_key_bits(max(B, key_views) * T)
 
     ops = opacities.reshape(B, N)
     # opacity < 1/255 can never pass the alpha floor: drop at binning (this is
@@ -636,7 +640,8 @@ def rasterize_views_binned(
     n_tiles = txn * tyn
 
     with record_function("render::binning"):
-        ctx = _bin_gaussians(projs, colors, opacities, height, width, ts, MW, MW)
+        ctx = _bin_gaussians(projs, colors, opacities, height, width, ts, MW, MW,
+                             key_views=config.key_views)
     if caps is not None:
         caps = caps.to(torch.int32).contiguous()
     with record_function("render::blend"):

@@ -15,8 +15,16 @@ per-frame input posmaps in the dataset (`python -m
 gaussianavatar_torch.export_stage_1`, then `python -m
 gaussianavatar_torch.gen_pose_map_frames`), or with `--fixed_inp 1` the
 canonical posmap at the input resolution. `--start_checkpoint` is parsed
-and unused, as in the JAX train.py. `--dp` is not ported yet and raises
-(it comes with multi-subject training).
+and unused, as in the JAX train.py.
+
+    python -m gaussianavatar_torch.train ... --dp 2 [--batch_size 4] [--device cpu]
+
+`--dp N` trains data-parallel over frames (parallel/mesh.py): N ranks,
+spawned by this one command, each on its shard of every global batch (the
+batch size must be a multiple of N), on NCCL when each rank has a card of
+its own and on gloo when they share one or run on the CPU. Rank 0 writes
+the outputs; the run's `kernel_launches` event in metrics.jsonl sums every
+rank's. A rank that fails fails the command.
 
     python -m gaussianavatar_torch.train ... --pos_encoding 1 --use_aiap
     python -m gaussianavatar_torch.train ... --profile_dir <dir> [--max_steps N]
@@ -26,7 +34,7 @@ the AIAP regulariser over a k=5 neighbour graph of the canonical points.
 `--profile_dir` runs `--max_steps` steps (20 when not given) under
 `torch.profiler` (CPU and, on the card, CUDA activities) and writes a
 Chrome trace into the directory, with the step's `train::*` and
-`render::*` ranges.
+`render::*` ranges (with `--dp`, rank 0's).
 
 LPIPS: with weights under `<project_path>/assets/lpips/` (or the
 repository's), `lpips_alex.npz` or the raw `alexnet*.pth` + `alex.pth` pair
@@ -41,8 +49,9 @@ import sys
 from argparse import ArgumentParser
 
 
-def main(argv=None):
-    from gaussianavatar_torch.config import build_parser, extract_config, ignored_raster_note
+def parse_args(argv=None):
+    """The command line -> (args, cfg)."""
+    from gaussianavatar_torch.config import build_parser, extract_config
 
     parser = ArgumentParser(description="Training script parameters")
     build_parser(parser)
@@ -62,25 +71,42 @@ def main(argv=None):
     parser.add_argument("--dp", type=int, default=1)
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv if argv is not None else sys.argv[1:])
+    return args, extract_config(args)
 
-    cfg = extract_config(args)
-    if args.dp != 1:
-        raise NotImplementedError("--dp is not ported yet to gaussianavatar_torch: data "
-                                  "parallelism comes with the multi-subject training slice "
-                                  "(ROADMAP Queue 1); the JAX train.py has it")
 
+def main(argv=None, timeout_s=None):
+    """`timeout_s` bounds a `--dp` run: its ranks are stopped and the call
+    raises if they have not all finished by then."""
+    from gaussianavatar_torch.engine.inference import require_device
+
+    args, cfg = parse_args(argv)
+    require_device(args.device)
+    if args.dp > 1:
+        from gaussianavatar_torch.parallel import mesh
+
+        mesh.check_batch(cfg.model.batch_size, args.dp)
+        mesh.spawn_ranks(run_training, args.dp, args.device, (args, cfg), timeout_s=timeout_s)
+    else:
+        run_training(args, cfg)
+
+
+def run_training(args, cfg):
+    """The training run of `main`, in this process or in one rank of a
+    data-parallel group (on the group's device)."""
     import torch
 
-    from gaussianavatar_torch.engine.inference import require_device
+    from gaussianavatar_torch.config import ignored_raster_note
     from gaussianavatar_torch.engine.loop import train
     from gaussianavatar_torch.ops.lpips import try_load_lpips
+    from gaussianavatar_torch.parallel import mesh
 
+    grp = mesh.group()
+    device = args.device if grp is None else grp.device
     saving_epochs = sorted(set(args.save_epochs + [cfg.opt.epochs]))
     # the JAX CLI seeds its host RNGs with 0; here the network's initial
     # weights draw from torch's default generator
     torch.manual_seed(0)
     torch.autograd.set_detect_anomaly(args.detect_anomaly)
-    require_device(args.device)
     with contextlib.ExitStack() as stack:
         if args.quiet:
             stack.enter_context(contextlib.redirect_stdout(stack.enter_context(
@@ -91,16 +117,18 @@ def main(argv=None):
         if args.no_lpips:
             lpips_note = "disabled (--no_lpips)"
         else:
-            lpips_fn = try_load_lpips(cfg.model.project_path, device=args.device)
+            lpips_fn = try_load_lpips(cfg.model.project_path, device=device)
             if lpips_fn is None:
                 print("LPIPS weights not found; training without the LPIPS term")
-        run = lambda max_steps: train(cfg, saving_epochs, device=args.device,
+        run = lambda max_steps: train(cfg, saving_epochs, device=device,
                                       max_steps=max_steps, lpips_note=lpips_note,
                                       checkpoint_epochs=args.checkpoint_epochs,
                                       lpips_fn=lpips_fn)
-        if args.profile_dir:
-            trace = profiled(run, args.profile_dir, args.max_steps or 20, args.device)
+        if args.profile_dir and (grp is None or grp.rank == 0):
+            trace = profiled(run, args.profile_dir, args.max_steps or 20, device)
             print("profiler trace written to", trace)
+        elif args.profile_dir:
+            run(args.max_steps or 20)
         else:
             run(args.max_steps)
         print("\nTraining complete.")

@@ -31,6 +31,11 @@ SOURCES = {"blend_fwd": "csrc/blend_fwd.cu", "blend_bwd": "csrc/blend_bwd.cu"}
 # kernels its main path went through.
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
+
+def launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    """Each kernel's launches since `before`, a copy of LAUNCHES."""
+    return {name: n - before.get(name, 0) for name, n in LAUNCHES.items()}
+
 # -fmad=false: no fused multiply-adds, so the kernels round after every
 # multiply and add exactly as their plain PyTorch versions do; the gating
 # tests (alpha >= 1/255, T >= 1e-4) then decide the same way on both, and

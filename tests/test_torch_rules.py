@@ -109,11 +109,13 @@ def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
     from gaussianavatar_torch import (
         eval as eval_cli, export_avatar_ply, export_stage_1, gen_pose_map_cano,
         gen_pose_map_frames, render_novel_pose, render_novel_view, render_pred_smpl, train,
+        train_multi,
     )
-    from gaussianavatar_torch.engine import inference, loop
+    from gaussianavatar_torch.engine import inference, loop, multi_loop
 
     assert inspect.signature(inference.load_trained).parameters["device"].default == "cuda"
     assert inspect.signature(loop.train).parameters["device"].default == "cuda"
+    assert inspect.signature(multi_loop.train_multi).parameters["device"].default == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tconfig.Config(tconfig.ModelParams(model_path=str(tmp_path)), tconfig.NetworkParams(),
                          tconfig.OptimizationParams(), tconfig.RasterParams())
@@ -124,6 +126,14 @@ def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
             cli.main(["-m", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA device requested"):
         train.main(["-s", str(tmp_path), "-m", str(tmp_path / "out")])
+    # data-parallel and multi-subject runs too, before any rank starts
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        train.main(["-s", str(tmp_path), "-m", str(tmp_path / "out"), "--dp", "2",
+                    "--batch_size", "2"])
+    for dp in ("1", "2"):
+        with pytest.raises(RuntimeError, match="CUDA device requested"):
+            train_multi.main(["--sources", str(tmp_path), str(tmp_path), "-m",
+                              str(tmp_path / "multi"), "--dp", dp, "--batch_size", "2"])
     # the preprocessing, overlay and export entry points too (sample_romp2gsavatar
     # and convert_lpips_weights convert files on the host and take no device)
     for argv in ([export_stage_1, ["-m", str(tmp_path), "-s", str(tmp_path)]],
@@ -133,6 +143,67 @@ def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
                  [export_avatar_ply, ["-m", str(tmp_path)]]):
         with pytest.raises(RuntimeError, match="CUDA device requested"):
             argv[0].main(argv[1])
+
+
+def test_dp_backend_is_chosen_by_the_sharing_rule_alone(tmp_path, monkeypatch):
+    """NCCL when every rank has a card of its own, gloo when ranks share a
+    card or run on the CPU; a failed NCCL start fails the run and is never
+    retried on gloo."""
+    from gaussianavatar_torch.parallel import mesh
+
+    assert mesh.backend_for("cuda", 2, 2) == mesh.backend_for("cuda", 4, 8) == "nccl"
+    assert mesh.backend_for("cuda", 2, 1) == mesh.backend_for("cuda", 4, 2) == "gloo"
+    assert mesh.backend_for("cpu", 2, 8) == "gloo"
+    assert [mesh.rank_device("cuda", r, 1) for r in range(2)] == ["cuda:0", "cuda:0"]
+    assert [mesh.rank_device("cuda", r, 4) for r in range(4)] == [f"cuda:{r}" for r in range(4)]
+
+    tried = []
+
+    def init(backend, **kw):
+        tried.append(backend)
+        raise RuntimeError(f"{backend} failed to start")
+
+    monkeypatch.setattr(mesh.dist, "init_process_group", init)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: None)
+    with pytest.raises(RuntimeError, match="nccl failed to start"):
+        mesh.init_group(0, 2, "cuda", str(tmp_path / "rendezvous"))
+    assert tried == ["nccl"] and mesh.group() is None
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="gloo failed to start"):
+        mesh.init_group(0, 2, "cuda", str(tmp_path / "rendezvous"))
+    assert tried == ["nccl", "gloo"] and mesh.group() is None
+
+
+def _rank_fails(path):
+    from gaussianavatar_torch.parallel import mesh
+
+    if mesh.group().rank == 1:
+        raise RuntimeError("rank 1 gave up")
+    import time
+
+    time.sleep(60)   # rank 0 waits on; the failure must stop it
+
+
+def _rank_hangs(path):
+    import time
+
+    time.sleep(600)
+
+
+def test_dp_ranks_fail_and_time_out_together(tmp_path):
+    """A rank that fails fails the whole run (the others are stopped), and
+    a run that outlasts its limit is killed and raises."""
+    import time
+
+    from gaussianavatar_torch.parallel import mesh
+
+    t0 = time.monotonic()
+    with pytest.raises(Exception, match="rank 1 gave up"):
+        mesh.spawn_ranks(_rank_fails, 2, "cpu", (str(tmp_path),), timeout_s=120)
+    with pytest.raises(TimeoutError, match="did not finish within 8 s"):
+        mesh.spawn_ranks(_rank_hangs, 2, "cpu", (str(tmp_path),), timeout_s=8)
+    assert time.monotonic() - t0 < 60
 
 
 def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):

@@ -90,16 +90,20 @@ def test_train_cli_then_render(tmp_path, capsys):
 
 
 def test_train_cli_refuses_what_is_not_ported(tmp_path):
-    """--dp, alone or beside other flags, raises and names the slice it
-    comes with (--pos_encoding 1 and --profile_dir train:
-    tests/test_torch_train_options.py)."""
+    """Every flag of the JAX train.py is ported (--dp since the scale-out
+    slice, tests/test_torch_multi_cli.py; --pos_encoding 1 and
+    --profile_dir: tests/test_torch_train_options.py). What the port
+    refuses is what the JAX CLI refuses: a --dp that does not divide the
+    batch, alone or beside other flags, with the JAX CLI's message and
+    before any rank starts."""
     import pytest
 
     from gaussianavatar_torch import train
 
     base = ["-s", str(tmp_path), "-m", str(tmp_path / "out"), "--device", "cpu"]
-    for extra in (["--dp", "2"], ["--dp", "4", "--pos_encoding", "1"],
-                  ["--dp", "2", "--profile_dir", str(tmp_path)],
-                  ["--train_stage", "2", "--dp", "2", "--checkpoint_epochs", "10"]):
-        with pytest.raises(NotImplementedError, match="not ported yet.*multi-subject"):
+    for extra in (["--dp", "3"], ["--dp", "4", "--pos_encoding", "1"],
+                  ["--dp", "3", "--profile_dir", str(tmp_path)],
+                  ["--train_stage", "2", "--dp", "4", "--checkpoint_epochs", "10"]):
+        with pytest.raises(ValueError, match=r"--batch_size \(2\) must be a multiple of --dp"):
             train.main(base + extra)
+    assert not os.path.exists(tmp_path / "out")
