@@ -5,7 +5,8 @@
 
 Phases, each of which must pass (the script exits nonzero otherwise):
   1. setup: the card's name and power limit, torch / CUDA / nvcc versions,
-     and the build of every CUDA kernel of the port from csrc/ (timed);
+     and the build of every CUDA kernel of the port from csrc/ (timed, one
+     nvcc per source, all at once);
   2. H-fwd against its plain PyTorch version on a random scene at the render
      shapes (115k gaussians per view, 4 views of 1024^2, 32px tiles, M=4),
      uncapped and with random per-tile caps;
@@ -92,7 +93,27 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      rank 0's last H-fwd and H-bwd inputs in each sound run held against
      the plain versions; the ranks' launches summed from metrics.jsonl,
      exact. Two ranks that share one card measure what the sharing
-     costs, not scaling.
+     costs, not scaling;
+ 11. the fused POP decoder (`--fused_decoder 1`), the launch counts read
+     around each entry point: (a) its three kernels, H-dstat
+     (csrc/decoder_stats.cu), H-dfwd (csrc/decoder_stage_fwd.cu) and H-dbwd
+     (csrc/decoder_stage_bwd.cu), against their plain versions on random
+     inputs at the canonical stage shapes (445,568 rows; 66 float32, 128
+     and 194 bfloat16 inputs, and the float32 decoder's 128), each timed
+     beside its bound and its library yardstick; (b) `train --fused_decoder
+     1` on phase 5's data, 30 steps (it/s and peak memory beside phase
+     5's), 10 at the float32 decoder, and 3 stage-2 steps from phase 7's
+     stage-1 save, launches exact (9 H-dstat, 11 H-dfwd and 11 H-dbwd per
+     training decode, 11 H-dfwd per eval-mode decode), each run's last
+     decoder inputs held against the plain versions; (c) phase 5's
+     reference checkpoint through both decoders (eval, render_novel_pose)
+     and (b)'s fused one through the reference decoder, all at the float32
+     decoder, each reading
+     within a limit that a control (one BatchNorm's running variance x
+     1.5) exceeds; (d) `--dp 2` against `--dp 1` in stage 2 at the float32
+     fused decoder, against ranks whose decoder skips its statistics
+     all-reduce; (e) train_multi, render_novel_view and export_avatar_ply
+     through the fused decoder.
 It prints one JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {...}}. It needs CUDA and the repository around it.
 """
@@ -310,10 +331,11 @@ def phase_random_scene(device):
               "per 4-view batch (no PyTorch library call computes this blend)")
 
 
-def make_slice(device):
+def make_slice(device, decoder_impl="ref"):
     """The main path's setup: a synthetic avatar at the canonical widths
     (query posmap 512, input posmap 128, c_geom 64, hsize 128, bf16 decoder,
-    random weights from seed 0), its stage-1 renderer from `make_renderer`,
+    the reference or the fused one, random weights from seed 0), its
+    stage-1 renderer from `make_renderer`,
     and batches of 4 of 32 poses from `synthetic_pose`, 1024^2, white
     background, a camera that frames the body."""
     from types import SimpleNamespace
@@ -345,6 +367,7 @@ def make_slice(device):
         num_frames=n_poses, pose_dim=J * 3, c_geom=cfg.net.c_geom,
         inp_posmap_size=cfg.model.inp_posmap_size, hsize=cfg.net.hsize,
         compute_dtype="bfloat16" if cfg.net.bf16_decoder else "float32",
+        decoder_impl=decoder_impl,
         pose_init=poses, generator=torch.Generator().manual_seed(0), device=device,
     ).eval()
     inf = InferenceBundle(cfg, AvatarBundle(body.to(device), assets, net, frames=None), epoch=0)
@@ -1328,7 +1351,7 @@ def phase_train_terms(device, card, work, train_stats):
                                                  2e-2, 2, 0.3)
     per_epoch = result["steps"] // 2
     n_render = 3 * min(max(gate.RENDER_FRAMES // 2, 1), per_epoch)
-    expect = {"blend_fwd": per_epoch + result["steps"] + n_render,
+    expect = {**{name: 0 for name in counts}, "blend_fwd": per_epoch + result["steps"] + n_render,
               "blend_bwd": per_epoch + result["steps"]}
     print(f"  pose leg on iteration_{epoch}: launches {counts} (expected {expect}: the floor "
           f"epoch, {result['steps']} refinement steps, {n_render} renders), {wall:.1f} s in all")
@@ -1445,8 +1468,19 @@ def _rank_depth_key():
         *a, config=config._replace(key_views=0), **kw)
 
 
+def _no_decoder_sync():
+    """The fused decoder's statistics stay the rank's own; the UNet's
+    BatchNorm still syncs."""
+    from types import SimpleNamespace
+
+    from gaussianavatar_torch.models import decoder
+
+    decoder.mesh = SimpleNamespace(syncs_batch_stats=lambda: False,
+                                   global_sum=decoder.mesh.global_sum)
+
+
 RANK_FAULTS = {"no_grad_sync": _no_grad_sync, "no_bn_sync": _no_bn_sync,
-               "rank_depth_key": _rank_depth_key}
+               "rank_depth_key": _rank_depth_key, "no_decoder_sync": _no_decoder_sync}
 
 
 def _rank_hooks(spec):
@@ -1689,6 +1723,515 @@ def phase_scale_out(device, card, work, train_stats):
     return fwd_err, bwd_err, total
 
 
+# phase 11: the fused POP decoder (`--fused_decoder 1`), on phase 5's data
+DECODER_KERNELS = ("decoder_stats", "decoder_stage_fwd", "decoder_stage_bwd")
+# launches per decode: a training decode takes x5's statistics once for its
+# three stages (9 H-dstat), runs 11 fused stages forward and 11 backward; a
+# decode in eval mode (the debug dump at step 1, eval, renders) runs the
+# 11 forwards alone. Stage 2 decodes its B frames in one call.
+TRAIN_DECODE = {"decoder_stats": 9, "decoder_stage_fwd": 11, "decoder_stage_bwd": 11}
+EVAL_DECODE = {"decoder_stats": 0, "decoder_stage_fwd": 11, "decoder_stage_bwd": 0}
+FUSED_STEPS, FUSED_F32_STEPS, FUSED_S2_STEPS, FUSED_MULTI_STEPS = TRAIN_STEPS, 10, 3, 3
+BF16_FLOP_PER_S = 989e12      # H100 SXM, dense bfloat16 on the tensor cores
+# the canonical stage-2 decode: B = 2 frames x 222,784 valid points (stage
+# 1 decodes one copy, 222,784 rows); the stage inputs the decoder gives its
+# kernels: the first stage's float32 features (64 + 2 uv), the hidden
+# stages' 128, the skip stage's 66 + 128, in the bf16 and the f32 decoder
+DECODER_ROWS = 445_568
+DECODER_CASES = (("first stage, bf16 decoder", 66, "float32", "bfloat16"),
+                 ("hidden stage, bf16 decoder", 128, "bfloat16", "bfloat16"),
+                 ("skip stage, bf16 decoder", 194, "bfloat16", "bfloat16"),
+                 ("hidden stage, f32 decoder", 128, "float32", "float32"))
+# f32 operations per element of the epilogues (softplus: the bias add, max,
+# |.|, exp, log1p, the sum) and of H-dbwd (negation, exp, 1 - ., the
+# product, the column sum); exp counts as one operation, so the bounds err low
+DFWD_EPILOGUE_FLOPS, DBWD_FLOPS = 6, 5
+# the decoder kernels against their plain versions on the same inputs:
+# H-dstat's Gram and column sums within this share of their largest
+# |entry| (the plain version sums in float64, the kernel in float32);
+# H-dfwd within one
+# bfloat16 ulp of the output's largest magnitude (the product's sum order
+# can flip a rounding), at float32 within this share of it; H-dbwd's du
+# within one ulp of each element, its bias gradient within this share of
+# the largest column's sum of |du|. H-dstat and H-dbwd are bit-identical
+# across runs.
+TOL_DSTAT = 1e-5
+TOL_DFWD_F32 = 1e-5
+TOL_DBWD_SUM = 1e-5
+# (c) evals of one checkpoint through the two decoders, both at the float32
+# decoder (CROSS_ARGS), where they agree to float noise; at the bf16
+# default they round at other places (the fold rounds Wp and bp to bf16,
+# the reference normalises in float32), and a 30-step avatar's eval PSNR
+# then moved 5e-3 to 1e-1 dB between runs (PERF.md), too close to the
+# control to hold. The readings: the largest per-frame PSNR difference over
+# the 4 test frames, and the mean |difference| of the novel-pose PNGs (8-bit
+# levels). Each limit sits between the sound reading and a control's: the
+# same checkpoint with one BatchNorm's running variance scaled by
+# CONTROL_VAR_SCALE, through the same decoder.
+CROSS_ARGS = ["--bf16_decoder", "0"]
+TOL_CROSS_PSNR = 1e-3
+TOL_CROSS_PNG = 1e-2
+CONTROL_BN, CONTROL_VAR_SCALE = "pop.decoder.bn.3.running_var", 1.5
+
+
+def _ulp(t):
+    """One ulp of each element of t (bfloat16 or float32), at least the
+    smallest normal number's."""
+    import torch
+
+    a = t.float().abs().clamp_min(2.0**-126)
+    return torch.exp2(torch.floor(torch.log2(a)) - (7 if t.dtype == torch.bfloat16 else 23))
+
+
+def _decoder_case(C, x_dtype, cdt, device, R=DECODER_ROWS):
+    """Random inputs of one stage at its real width: x (positive, as an
+    activation, except the first stage's features), folded weights and
+    bias, and an output cotangent, from seed C."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(C)
+    x = torch.randn(R, C, generator=g, device=device)
+    if x_dtype == "bfloat16":
+        x = torch.nn.functional.softplus(x)
+    Wp = torch.randn(C, 128, generator=g, device=device) / C ** 0.5
+    bp = 0.1 * torch.randn(128, generator=g, device=device)
+    cot = 1e-3 * torch.randn(R, 128, generator=g, device=device)
+    dt = lambda name: getattr(torch, name)
+    return x.to(dt(x_dtype)), Wp.to(dt(cdt)), bp.to(dt(cdt)), cot.to(dt(cdt))
+
+
+def _hold_stats(label, x):
+    """H-dstat against its plain version -> max |kernel - plain|."""
+    import torch
+
+    from gaussianavatar_torch.ops import decoder_stage as ds
+
+    s1, g1 = ds.column_stats(x)
+    s2, g2 = ds.column_stats(x)
+    sp, gp = ds.column_stats_plain(x)
+    torch.cuda.synchronize()
+    if not (torch.equal(s1, s2) and torch.equal(g1, g2)):
+        _fail(f"H-dstat differs between two runs on the same inputs ({label})")
+    eg, es = float((g1 - gp).abs().max()), float((s1 - sp).abs().max())
+    rg, rs = eg / float(gp.abs().max()), es / float(sp.abs().max())
+    print(f"  {label}, H-dstat ({x.shape[1]} wide, {str(x.dtype)[6:]}): Gram {rg:.2e}, column "
+          f"sums {rs:.2e} of their largest (tol {TOL_DSTAT:g}); two runs identical")
+    if not (rg <= TOL_DSTAT and rs <= TOL_DSTAT):
+        _fail(f"H-dstat disagrees with its plain version ({label})")
+    return max(eg, es)
+
+
+def _hold_fwd(label, x, Wp, bp, act):
+    """H-dfwd against its plain version -> max |kernel - plain|."""
+    import torch
+
+    from gaussianavatar_torch.ops import decoder_stage as ds
+
+    z = ds.stage_fwd(x, Wp, bp, act)
+    zp = ds.stage_fwd_plain(x, Wp, bp, act)
+    d = (z.float() - zp.float()).abs()
+    big = zp.float().abs().max()
+    bf16 = Wp.dtype == torch.bfloat16
+    tol = float(_ulp(big.to(Wp.dtype))) if bf16 else TOL_DFWD_F32 * float(big)
+    err, moved = float(d.max()), float((d > 0).float().mean())
+    print(f"  {label}, H-dfwd ({x.shape[1]} -> 128, {act}, {str(Wp.dtype)[6:]}): max|d z| "
+          f"{err:.3e} (tol {tol:.3e}: " + ("one bf16 ulp of" if bf16 else
+                                            f"{TOL_DFWD_F32:g} x") + f" max|z| {float(big):.3g}), "
+          f"{100 * moved:.3f}% of elements differ")
+    if not err <= tol or not bool(torch.isfinite(z).all()):
+        _fail(f"H-dfwd disagrees with its plain version ({label})")
+    return err
+
+
+def _hold_bwd(label, g, z, act):
+    """H-dbwd against its plain version -> max |kernel - plain| (du)."""
+    import torch
+
+    from gaussianavatar_torch.ops import decoder_stage as ds
+
+    du1, db1 = ds.stage_bwd(g, z, act)
+    du2, db2 = ds.stage_bwd(g, z, act)
+    dup, dbp = ds.stage_bwd_plain(g, z, act)
+    torch.cuda.synchronize()
+    if not (torch.equal(du1, du2) and torch.equal(db1, db2)):
+        _fail(f"H-dbwd differs between two runs on the same inputs ({label})")
+    d = (du1.float() - dup.float()).abs()
+    over = int((d > _ulp(dup)).sum())
+    scale = float(dup.float().abs().sum(0).max())
+    rdb = float((db1 - dbp).abs().max()) / max(scale, 1e-30)
+    print(f"  {label}, H-dbwd ({act}, {str(z.dtype)[6:]}): max|d du| {float(d.max()):.3e}, "
+          f"{over} elements over one ulp (tol 0); bias gradient {rdb:.2e} of the largest "
+          f"column's sum |du| (tol {TOL_DBWD_SUM:g}); two runs identical")
+    if over or not rdb <= TOL_DBWD_SUM:
+        _fail(f"H-dbwd disagrees with its plain version ({label})")
+    return float(d.max())
+
+
+def _decoder_bounds(R, C, x_esize, c_esize, tensor_cores):
+    """Least times (ms, bound_by) of the three kernels on one stage: the
+    bytes (each input read once, each output written once) over HBM
+    bandwidth against the operations over the peak of their type."""
+    peak = BF16_FLOP_PER_S if tensor_cores else FP32_FLOP_PER_S
+
+    def bound(bytes_, t_ops):
+        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    stat = bound(R * C * x_esize + (C * C + C) * 4, (2 * R * C * C) / peak * 1e3
+                 + R * C / FP32_FLOP_PER_S * 1e3)
+    fwd = bound(R * C * x_esize + (C * 128 + 128) * c_esize + R * 128 * c_esize,
+                2 * R * C * 128 / peak * 1e3 + DFWD_EPILOGUE_FLOPS * R * 128 / FP32_FLOP_PER_S * 1e3)
+    bwd = bound(3 * R * 128 * c_esize + 128 * 4, DBWD_FLOPS * R * 128 / FP32_FLOP_PER_S * 1e3)
+    return {"decoder_stats": stat, "decoder_stage_fwd": fwd, "decoder_stage_bwd": bwd}
+
+
+def _decoder_random_holds(device, card):
+    """(a) the three kernels against their plain versions on random inputs
+    at the canonical stage shapes, each timed beside its bound and its
+    library yardstick -> ({kernel: numbers of the 128-wide bf16 stage},
+    {kernel: max |error|})."""
+    import torch
+
+    from gaussianavatar_torch.ops import decoder_stage as ds
+
+    errs = {k: 0.0 for k in DECODER_KERNELS}
+    rows = {}
+    for label, C, x_dt, cdt in DECODER_CASES:
+        x, Wp, bp, cot = _decoder_case(C, x_dt, cdt, device)
+        errs["decoder_stats"] = max(errs["decoder_stats"], _hold_stats(label, x))
+        acts = ("softplus", "relu") if C == 128 and cdt == "bfloat16" else ("softplus",)
+        for act in acts:
+            errs["decoder_stage_fwd"] = max(errs["decoder_stage_fwd"],
+                                            _hold_fwd(label, x, Wp, bp, act))
+            z = ds.stage_fwd(x, Wp, bp, act)
+            errs["decoder_stage_bwd"] = max(errs["decoder_stage_bwd"],
+                                            _hold_bwd(label, cot, z, act))
+        z = ds.stage_fwd(x, Wp, bp, "softplus")
+        xf, xc = x.float(), x.to(Wp.dtype)
+        t = {
+            "decoder_stats": (_time_ms(lambda: ds.column_stats(x), reps=20),
+                              _time_ms(lambda: ds.column_stats_plain(x), reps=5, warmup=1),
+                              _time_ms(lambda: torch.mm(xf.t(), xf), reps=20)),
+            "decoder_stage_fwd": (_time_ms(lambda: ds.stage_fwd(x, Wp, bp, "softplus"), reps=20),
+                                  _time_ms(lambda: ds.stage_fwd_plain(x, Wp, bp, "softplus"),
+                                           reps=5, warmup=1),
+                                  _time_ms(lambda: torch.addmm(bp, xc, Wp), reps=20)),
+            "decoder_stage_bwd": (_time_ms(lambda: ds.stage_bwd(cot, z, "softplus"), reps=20),
+                                  _time_ms(lambda: ds.stage_bwd_plain(cot, z, "softplus"),
+                                           reps=5, warmup=1), None),
+        }
+        bounds = _decoder_bounds(DECODER_ROWS, C, x.element_size(), Wp.element_size(),
+                                 cdt == "bfloat16")
+        for name, (ms, plain_ms, lib_ms) in t.items():
+            b_ms, b_by = bounds[name]
+            lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
+            print(f"  {label}: {name} {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}), library {lib} ({DECODER_ROWS} rows); on {card}")
+            if C == 128 and cdt == "bfloat16":
+                rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                              "bound_by": b_by, "library_ms": lib_ms}
+        del x, Wp, bp, cot, z, xf, xc
+    return rows, errs
+
+
+class _DecoderRecorder:
+    """While active, the decoder kernels' wrappers keep their last call's
+    inputs for each wrapper, width and dtype (they launch as before)."""
+
+    NAMES = ("column_stats", "stage_fwd", "stage_bwd")
+
+    def __enter__(self):
+        import torch
+
+        from gaussianavatar_torch.ops import decoder_stage
+
+        self.mod = decoder_stage
+        self.real = {n: getattr(decoder_stage, n) for n in self.NAMES}
+        self.rec = {}
+
+        def wrap(name):
+            real = self.real[name]
+
+            def call(*a):
+                self.rec[(name, a[0].shape[1], a[0].dtype)] = tuple(
+                    v.detach() if torch.is_tensor(v) else v for v in a)
+                return real(*a)
+            return call
+
+        for n in self.NAMES:
+            setattr(decoder_stage, n, wrap(n))
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.real.items():
+            setattr(self.mod, n, f)
+
+
+def _hold_recorded(rec, label):
+    """Each recorded decoder call's inputs through its kernel and its plain
+    version -> {kernel: max |error|}."""
+    errs = {k: 0.0 for k in DECODER_KERNELS}
+    for (name, _, _), args in sorted(rec.items(), key=lambda kv: (kv[0][0], kv[0][1])):
+        if name == "column_stats":
+            errs["decoder_stats"] = max(errs["decoder_stats"], _hold_stats(label, *args))
+        elif name == "stage_fwd":
+            errs["decoder_stage_fwd"] = max(errs["decoder_stage_fwd"], _hold_fwd(label, *args))
+        else:
+            errs["decoder_stage_bwd"] = max(errs["decoder_stage_bwd"], _hold_bwd(label, *args))
+    return errs
+
+
+def _expect(what, counts, per_step, steps, evals=0, blend=None):
+    """Fails unless `counts` holds each blend kernel once per step (or
+    `blend`: (H-fwd, H-bwd) launches) and each decoder kernel per decode
+    (`steps` training decodes, `evals` decodes in eval mode besides)."""
+    fwd, bwd = blend if blend is not None else (steps, steps)
+    want = {"blend_fwd": fwd, "blend_bwd": bwd}
+    for k in DECODER_KERNELS:
+        want[k] = per_step[k] * steps + EVAL_DECODE[k] * evals
+    got = {k: counts.get(k) for k in want}
+    print(f"  {what}: launches {got} (expected {want})")
+    if got != want:
+        _fail(f"{what} launched {got}, not {want}")
+
+
+def _fused_train(label, argv, out, steps, card, train_stats=None):
+    """`train` through the fused decoder for `steps` steps, the decoder
+    kernels recorded -> (counts, recorder's inputs, steps' metrics)."""
+    import torch
+
+    from gaussianavatar_torch import train as train_cli
+
+    torch.cuda.reset_peak_memory_stats()
+    with _DecoderRecorder() as drec:
+        _, counts, wall = _run_counted(train_cli.main, argv + ["--max_steps", str(steps)])
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    # the debug dump at step 1 decodes once more, in eval mode
+    _expect(label, counts, TRAIN_DECODE, steps, evals=1)
+    steps_m, _ = _metrics(out)
+    last = max(steps_m)   # metrics.jsonl logs step 1 and every 10th
+    if not all(math.isfinite(r["total"]) for r in steps_m.values()):
+        _fail(f"{label}: loss not finite")
+    line = (f"  {label}: loss {steps_m[1]['total']:.5f} at step 1 -> "
+            f"{steps_m[last]['total']:.5f} at step {last}, peak memory {peak_gb:.2f} GiB, "
+            f"{wall:.1f} s in all (setup included)")
+    if steps > 10:
+        _, rate = _train_rate(out, steps)
+        line += f", {rate:.2f} it/s steady (steps 10-{steps})"
+        if train_stats:
+            line += (f"; phase 5 (reference decoder) {train_stats['rate']:.2f} it/s, "
+                     f"{train_stats['peak_gb']:.2f} GiB")
+    print(line + f", on {card}")
+    return counts, drec.rec, steps_m
+
+
+def _eval_frames(out, fused):
+    """eval of `out`'s newest save through the fused or the reference
+    decoder, at the float32 decoder -> (per-frame PSNR, counts)."""
+    from gaussianavatar_torch import eval as eval_cli
+
+    result, counts, _ = _run_counted(eval_cli.main, ["-m", out, "--fused_decoder", str(fused)]
+                                     + CROSS_ARGS)
+    return result["frame_psnr"], counts
+
+
+def _novel_pose_pngs(out, data, fused):
+    """render_novel_pose of the test split's poses at 512^2, at the float32
+    decoder -> (the PNGs as one uint8 array, counts)."""
+    import numpy as np
+    from PIL import Image
+
+    from gaussianavatar_torch import render_novel_pose
+
+    _, counts, _ = _run_counted(render_novel_pose.main, [
+        "-m", out, "--fused_decoder", str(fused), "--image_size", "512",
+        "--test_folder", os.path.join(data, "test")] + CROSS_ARGS)
+    d = os.path.join(out, "novel_pose")
+    return np.stack([np.asarray(Image.open(os.path.join(d, n)))
+                     for n in sorted(os.listdir(d)) if n.endswith(".png")]), counts
+
+
+def _control_copy(out, dst):
+    """A copy of `out` whose newest save has CONTROL_BN scaled by
+    CONTROL_VAR_SCALE."""
+    import shutil
+
+    import torch
+
+    from gaussianavatar_torch.engine import checkpoint as ckpt
+
+    shutil.copytree(out, dst, ignore=shutil.ignore_patterns("log", "novel_pose", "test_free"))
+    path = os.path.join(ckpt.ckpt_dir(dst, ckpt.latest_epoch(dst)), ckpt.CKPT_NAME)
+    sd = torch.load(path, weights_only=True)
+    sd[CONTROL_BN] = sd[CONTROL_BN] * CONTROL_VAR_SCALE
+    torch.save(sd, path)
+    return dst
+
+
+def phase_fused_decoder(device, card, work, train_stats):
+    """Phase 11: the fused decoder. (a) H-dstat, H-dfwd and H-dbwd against
+    their plain versions at the canonical stage shapes, timed; (b) stage-1
+    training through it (bf16, then f32) and stage 2 from phase 7's stage-1
+    save, exact launches, each run's last decoder inputs held; (c) the
+    checkpoints cross-loaded between the decoders through eval and
+    render_novel_pose, against a perturbed control; (d) `--dp 2` against
+    `--dp 1` in stage 2 (f32 decoder), against ranks whose fused decoder
+    skips its statistics all-reduce; (e) train_multi, render_novel_view and
+    export_avatar_ply through it -> ({kernel: JSON numbers}, launches on the
+    main paths)."""
+    from gaussianavatar_torch.engine import checkpoint as ckpt
+
+    total = {k: 0 for k in DECODER_KERNELS}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts.get(k, 0)
+
+    t_part = time.perf_counter()
+    rows, errs = _decoder_random_holds(device, card)
+    print(f"  (a) in {time.perf_counter() - t_part:.1f} s")
+
+    def held(rec, label):
+        for k, v in _hold_recorded(rec, label).items():
+            errs[k] = max(errs[k], v)
+
+    # (b) training through the fused decoder
+    t_part = time.perf_counter()
+    data = os.path.join(work, "data")
+    fused_out = os.path.join(work, "fused_out")
+    counts, rec, _ = _fused_train("stage 1, bf16 fused decoder",
+                                  _train_argv(data, fused_out) + ["--fused_decoder", "1"],
+                                  fused_out, FUSED_STEPS, card, train_stats)
+    add(counts)
+    held(rec, "stage-1 last step")
+    f32_out = os.path.join(work, "fused_f32_out")
+    counts, rec, _ = _fused_train("stage 1, f32 fused decoder", _train_argv(data, f32_out)
+                                  + ["--fused_decoder", "1", "--bf16_decoder", "0"],
+                                  f32_out, FUSED_F32_STEPS, card)
+    add(counts)
+    held(rec, "stage-1 f32 last step")
+    out1 = os.path.join(work, "out")
+    stage1 = ckpt.ckpt_dir(out1, ckpt.latest_epoch(out1, ckpt.TRAIN_NAME))
+    s2 = lambda out: ["-s", data, "-m", out, "--train_stage", "2", "--stage1_out_path", stage1,
+                      "--dataset_type", "synthetic", "--no_lpips", "--fused_decoder", "1"]
+    s2_out = os.path.join(work, "fused_s2_out")
+    counts, rec, steps_m = _fused_train("stage 2 (B = 2 frames in one decode), bf16 fused decoder",
+                                        s2(s2_out), s2_out, FUSED_S2_STEPS, card)
+    add(counts)
+    if not all(math.isfinite(r["pose"]) and r["pose"] > 0 for r in steps_m.values()):
+        _fail("fused stage 2: pose_loss not finite or no pose feature map")
+    held(rec, "stage-2 last step")
+    print(f"  (b) in {time.perf_counter() - t_part:.1f} s")
+
+    # (c) cross-loads: phase 5's reference checkpoint through both
+    # decoders (eval and novel pose), (b)'s fused checkpoint through both,
+    # each beside a control whose BatchNorm variance is perturbed
+    t_part = time.perf_counter()
+    import numpy as np
+
+    readings = []
+    for name, out in (("phase 5's reference checkpoint", out1),
+                      ("(b)'s fused checkpoint", fused_out)):
+        ctrl = _control_copy(out, os.path.join(work, "cross_control_" + os.path.basename(out)))
+        native = 0 if out == out1 else 1
+        p_nat, c1 = _eval_frames(out, native)
+        p_x, c2 = _eval_frames(out, 1 - native)
+        p_ctrl, c3 = _eval_frames(ctrl, native)
+        for c in (c1, c2, c3):
+            add(c)
+        d_psnr = max(abs(a - b) for a, b in zip(p_nat, p_x))
+        d_ctrl = max(abs(a - b) for a, b in zip(p_nat, p_ctrl))
+        readings.append((f"{name}, eval PSNR", d_psnr, d_ctrl, TOL_CROSS_PSNR, "dB"))
+        print(f"  {name}: eval PSNR {np.mean(p_nat):.3f} dB through its own decoder, "
+              f"{np.mean(p_x):.3f} through the other; control {np.mean(p_ctrl):.3f}")
+        if native == 0:
+            img_nat, c1 = _novel_pose_pngs(out, data, 0)
+            img_x, c2 = _novel_pose_pngs(out, data, 1)
+            img_ctrl, c3 = _novel_pose_pngs(ctrl, data, 0)
+            for c in (c1, c2, c3):
+                add(c)
+            if c2["decoder_stage_fwd"] < EVAL_DECODE["decoder_stage_fwd"]:
+                _fail("the fused novel-pose render did not run H-dfwd")
+            mad = lambda a, b: float(np.abs(a.astype(np.float64) - b).mean())
+            readings.append((f"{name}, novel-pose PNGs", mad(img_nat, img_x),
+                             mad(img_nat, img_ctrl), TOL_CROSS_PNG, "levels"))
+        if c2["decoder_stage_fwd"] != (EVAL_DECODE["decoder_stage_fwd"] if native == 0 else 0):
+            _fail(f"{name}: the eval through the other decoder launched {c2}")
+    for what, sound, broken, tol, unit in readings:
+        print(f"  {what}: the other decoder {sound:.3e} {unit} from its own, the control "
+              f"{broken:.3e} (limit {tol:g})")
+    for what, sound, broken, tol, _ in readings:
+        if not sound <= tol:
+            _fail(f"{what}: {sound:.3e} over the limit {tol:g}")
+        if not broken > tol:
+            _fail(f"{what}: the control ({broken:.3e}) is within the limit {tol:g}")
+    print(f"  (c) in {time.perf_counter() - t_part:.1f} s")
+
+    # (d) --dp 2 against --dp 1, stage 2 at the f32 fused decoder
+    t_part = time.perf_counter()
+    argv = lambda out: s2(out) + ["--bf16_decoder", "0"]
+    runs = {}
+    for name, dp, fault in (("dp1", 1, None), ("dp2", 2, None),
+                            ("no_decoder_sync", 2, "no_decoder_sync")):
+        runs[name] = _dp_run("fused stage 2 (f32 decoder)", argv,
+                             os.path.join(work, f"fused_dp_{name}"), dp, 1, fault)
+        summed = runs[name]["launches"]
+        want = {k: TRAIN_DECODE[k] * dp + EVAL_DECODE[k] for k in DECODER_KERNELS}
+        if {k: summed[k] for k in DECODER_KERNELS} != want:
+            _fail(f"fused --dp {dp} ({name}) launched {summed}, not {want}")
+        if fault is None:
+            add(summed)
+    sound = _apart(runs["dp1"], runs["dp2"], 1)
+    broken = _apart(runs["dp1"], runs["no_decoder_sync"], 1)
+    print(f"  fused stage 2 (f32), step 1 vs --dp 1: --dp 2 {sound:.2e}, ranks whose fused "
+          f"decoder skips the statistics all-reduce {broken:.2e} (limit {TOL_DP_FIRST_S2:g})")
+    if not sound <= TOL_DP_FIRST_S2:
+        _fail(f"fused --dp 2 is {sound:.2e} from --dp 1, over {TOL_DP_FIRST_S2:g}")
+    if not broken > TOL_DP_FIRST_S2:
+        _fail(f"the fused --dp 2 control ({broken:.2e}) is within {TOL_DP_FIRST_S2:g}")
+    print(f"  (d) in {time.perf_counter() - t_part:.1f} s")
+
+    # (e) the other entry points through the fused decoder: train_multi on
+    # two of phase 10's subjects, render_novel_view and export_avatar_ply of
+    # (b)'s checkpoint
+    t_part = time.perf_counter()
+    from gaussianavatar_torch import export_avatar_ply, render_novel_view, train_multi
+
+    S = 2
+    sources_multi = [os.path.join(work, "multi_data", n) for n, _ in MULTI_SUBJECTS[:S]]
+    _, counts, wall = _run_counted(train_multi.main, [
+        "--sources", *sources_multi, "-m", os.path.join(work, "fused_multi_out"),
+        "--train_stage", "1", "--dataset_type", "synthetic", "--pose_op_start_iter", "0",
+        "--fused_decoder", "1", "--max_steps", str(FUSED_MULTI_STEPS)])
+    _expect(f"train_multi, {S} subjects x {FUSED_MULTI_STEPS} steps ({wall:.1f} s)", counts,
+            TRAIN_DECODE, S * FUSED_MULTI_STEPS)
+    add(counts)
+    _, counts, wall = _run_counted(render_novel_view.main, ["-m", fused_out, "--frames", "4"])
+    pngs = sorted(os.listdir(os.path.join(fused_out, "novel_view", "pose_0")))
+    _expect(f"render_novel_view of (b)'s checkpoint, {len(pngs)} frames ({wall:.1f} s)", counts,
+            TRAIN_DECODE, 0, evals=1, blend=(1, 0))
+    add(counts)
+    _, counts, wall = _run_counted(export_avatar_ply.main, ["-m", fused_out])
+    plys = [n for n in os.listdir(fused_out) if n.endswith(".ply")]
+    _expect(f"export_avatar_ply of (b)'s checkpoint, {plys} ({wall:.1f} s)", counts,
+            TRAIN_DECODE, 0, evals=1, blend=(0, 0))
+    add(counts)
+    if len(pngs) != 4 or not plys:
+        _fail("the fused novel view or export wrote no frames or no PLY")
+    print(f"  (e) in {time.perf_counter() - t_part:.1f} s")
+
+    sources = {"decoder_stats": "decoder_stats.cu", "decoder_stage_fwd": "decoder_stage_fwd.cu",
+               "decoder_stage_bwd": "decoder_stage_bwd.cu"}
+    # the JAX stage each kernel stands in for (no pallas_call: XLA fuses it)
+    replaces = {"decoder_stats": "gaussianavatar_tpu/models/decoder.py:207",
+                "decoder_stage_fwd": "gaussianavatar_tpu/models/decoder.py:220",
+                "decoder_stage_bwd": "gaussianavatar_tpu/models/decoder.py:130"}
+    kernels = [{"name": k, "route": "cuda", "source": f"gaussianavatar_torch/csrc/{sources[k]}",
+                "replaces": replaces[k], "launches": total[k], "max_abs_err": errs[k],
+                **rows[k]} for k in DECODER_KERNELS]
+    return kernels, total
+
+
 def main():
     try:
         import torch
@@ -1733,6 +2276,11 @@ def main():
         t10 = time.perf_counter()
         p10_fwd_err, p10_bwd_err, p10_counts = phase_scale_out(device, card, work, train_stats)
         print(f"  phase 10 in {time.perf_counter() - t10:.1f} s")
+        print("phase 11: the fused decoder (--fused_decoder 1): its kernels at the canonical "
+              "stage shapes, training (stages 1 and 2), cross-loads, --dp 2")
+        t11 = time.perf_counter()
+        decoder_kernels, _ = phase_fused_decoder(device, card, work, train_stats)
+        print(f"  phase 11 in {time.perf_counter() - t11:.1f} s")
     # launches: each main path's run, added (the render's H-fwd, training's,
     # then the resumed run's, eval's and the novel view's, then stage 2's,
     # then phase 8's, then phase 9's, then phase 10's)
@@ -1747,7 +2295,7 @@ def main():
     bwd["max_abs_err"] = max(bwd["max_abs_err"], s2_bwd_err, p8_bwd_err, p9_bwd_err,
                              p10_bwd_err)
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"kernels": [fwd, bwd]}))
+    print(json.dumps({"kernels": [fwd, bwd] + decoder_kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -4,8 +4,9 @@ Same dataclasses, flag names, defaults and `cfg_args.json` layout, so a
 `cfg_args.json` written by either package loads in the other. The port
 reads only the raster fields in `PORT_RASTER_FIELDS`; the rest steer TPU
 capacity machinery (static-shape cascades, ragged chunk budgets, retunes,
-gather layouts) that the port's uncapped blend does not need. They still
-parse and still round-trip through `cfg_args.json`.
+gather layouts) that the port's uncapped blend does not need. They, and
+the few other fields in `PORT_IGNORED_FIELDS`, still parse and still
+round-trip through `cfg_args.json`; `ignored_flags_note` names them all.
 """
 
 from __future__ import annotations
@@ -148,17 +149,29 @@ class RasterParams:
 
 
 # The raster fields the port reads. Every other RasterParams field steers
-# TPU machinery; `ignored_raster_note` names them once at startup.
+# TPU machinery; `ignored_flags_note` names them once at startup.
 PORT_RASTER_FIELDS = ("tile_size", "max_tiles_per_gaussian",
                       "render_max_tiles_per_gaussian")
 
+# The other fields the port parses (they round-trip through cfg_args.json)
+# and does not act on, each with the reason.
+PORT_IGNORED_FIELDS = {
+    "steps_per_dispatch": "the JAX package scans S optimizer steps per dispatch; "
+                          "the port dispatches one step at a time",
+    "cache_frames": "the port keeps every frame on the device as a uint8 bank",
+    "train_mode": "read by neither package",
+    "gaussian_kernel_size": "read by neither package",
+}
 
-def ignored_raster_note() -> str:
+
+def ignored_flags_note() -> str:
+    """One line naming every flag the port accepts and does not act on."""
     ignored = [f.name for f in dataclasses.fields(RasterParams)
                if f.name not in PORT_RASTER_FIELDS]
     return ("gaussianavatar_torch ignores the TPU-only raster knobs "
             "(the blend walks every tile's whole depth range, sorts stably, "
-            "and has one kernel): " + ", ".join(ignored))
+            "and has one kernel): " + ", ".join(ignored) + "; and "
+            + "; ".join(f"{k} ({why})" for k, why in PORT_IGNORED_FIELDS.items()))
 
 
 def _add_group(parser: ArgumentParser, cls, name: str, shorthands: dict):

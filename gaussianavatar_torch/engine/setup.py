@@ -113,6 +113,7 @@ def setup_avatar(cfg: Config, device: str = "cuda", train: bool = False) -> Avat
         posemb_incl_input=bool(npar.posemb_incl_input),
         train_stage=mp.train_stage,
         compute_dtype="bfloat16" if npar.bf16_decoder else "float32",
+        decoder_impl="fused" if npar.fused_decoder else "ref",
         pose_init=frames.pose_data,
         transl_init=frames.transl_data,
         device=device,

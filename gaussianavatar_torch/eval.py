@@ -36,7 +36,7 @@ def main(argv=None):
     results.txt (lpips None without weights), the frame count, the seconds
     spent in the render calls (host clock, each call's images copied to the
     host), and the per-frame metrics (frame_lpips empty without weights)."""
-    from gaussianavatar_torch.config import Config, build_parser, extract_config, ignored_raster_note
+    from gaussianavatar_torch.config import Config, build_parser, extract_config, ignored_flags_note
 
     parser = ArgumentParser(description="Testing script parameters")
     build_parser(parser)
@@ -49,7 +49,7 @@ def main(argv=None):
     if args.model_path and os.path.exists(cfg_path):
         saved = Config.load(cfg_path)
     cfg = extract_config(args, saved)
-    print(ignored_raster_note())
+    print(ignored_flags_note())
 
     import torch
     from PIL import Image

@@ -131,6 +131,7 @@ class AvatarNet(nn.Module):
         posemb_incl_input: bool = False,
         train_stage: int = 1,
         compute_dtype: str = "float32",
+        decoder_impl: str = "ref",
         pose_init: Optional[np.ndarray] = None,
         transl_init: Optional[np.ndarray] = None,
         generator: Optional[torch.Generator] = None,
@@ -150,7 +151,8 @@ class AvatarNet(nn.Module):
                               hsize=hsize, up_mode=up_mode, use_dropout=use_dropout,
                               pos_encoding=pos_encoding, num_emb_freqs=num_emb_freqs,
                               posemb_incl_input=posemb_incl_input,
-                              compute_dtype=compute_dtype, generator=generator)
+                              compute_dtype=compute_dtype, decoder_impl=decoder_impl,
+                              generator=generator)
         # the input posmap is xyz: 3 channels
         self.pose_encoder = (UnetNoCond5DS(3, c_pose, nf, up_mode, use_dropout=False)
                              if train_stage == 2 else None)

@@ -8,7 +8,8 @@
     -> gather the valid UV pixels (the MLP runs on valid points only)
     -> + their uv coordinates, NeRF-encoded with `pos_encoding`
        (`num_emb_freqs` frequencies, the raw uv too with `posemb_incl_input`)
-    -> ShapeDecoder -> (offsets, isotropic scales, colors) per point.
+    -> ShapeDecoder, or ShapeDecoderFused with decoder_impl="fused"
+       -> (offsets, isotropic scales, colors) per point.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from gaussianavatar_torch.models.decoder import ShapeDecoder
+from gaussianavatar_torch.models.decoder import ShapeDecoder, ShapeDecoderFused
 from gaussianavatar_torch.models.layers import (
     GeomConvBottleneckLayers, GeomConvLayers, UnetNoCond5DS,
 )
@@ -44,14 +45,17 @@ class POPDecoder(nn.Module):
                  nf: int = 32, hsize: int = 128, up_mode: str = "upconv",
                  use_dropout: bool = False, pos_encoding: bool = False,
                  num_emb_freqs: int = 6, posemb_incl_input: bool = False,
-                 compute_dtype: str = "float32",
+                 compute_dtype: str = "float32", decoder_impl: str = "ref",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if decoder_impl not in ("ref", "fused"):
+            raise ValueError(f"decoder_impl must be ref or fused, got {decoder_impl!r}")
         self.geom = _smoother(geom_layer_type, c_geom, nf, up_mode, use_dropout, generator)
         # the uv coordinates: 2 channels, or 2 (2 m + incl) encoded
         self.embed, uv_dim = get_embedder(num_emb_freqs if pos_encoding else 0, input_dims=2,
                                           include_input=bool(posemb_incl_input))
-        self.decoder = ShapeDecoder(c_geom + uv_dim, hsize=hsize, compute_dtype=compute_dtype)
+        decoder = ShapeDecoderFused if decoder_impl == "fused" else ShapeDecoder
+        self.decoder = decoder(c_geom + uv_dim, hsize=hsize, compute_dtype=compute_dtype)
 
     def forward(
         self,

@@ -24,7 +24,7 @@ REN_B = 4
 
 
 def main(argv=None):
-    from gaussianavatar_torch.config import Config, build_parser, extract_config, ignored_raster_note
+    from gaussianavatar_torch.config import Config, build_parser, extract_config, ignored_flags_note
 
     parser = ArgumentParser(description="Novel pose rendering parameters")
     build_parser(parser)
@@ -39,7 +39,7 @@ def main(argv=None):
     if args.model_path and os.path.exists(cfg_path):
         saved = Config.load(cfg_path)
     cfg = extract_config(args, saved)
-    print(ignored_raster_note())
+    print(ignored_flags_note())
 
     from PIL import Image
     import torch

@@ -1,7 +1,10 @@
 """Novel-view (bullet-time) CLI of the port (counterpart of the JAX
 package's render_novel_view.py): orbit the test split's camera around a
-fixed pose of a trained avatar, 4 frames per render call (a stage-2
-avatar decodes the pose's input posmap, or its fixed posmap).
+fixed pose of a trained avatar, 4 frames per render call. A stage-2
+avatar decodes the pose's input posmap; one trained with `--fixed_inp 1`
+decodes with no pose feature map, as the JAX package's render_novel_view.py
+does (it never loads the fixed posmap; ROADMAP F11), and says so in one
+line.
 
     python -m gaussianavatar_torch.render_novel_view -m <out_path> [--epoch N] \
         [--bullet_pose_list 112 217 755] [--frames 60] [--device cpu]
@@ -24,7 +27,7 @@ REN_B = 4
 
 
 def main(argv=None):
-    from gaussianavatar_torch.config import Config, build_parser, extract_config, ignored_raster_note
+    from gaussianavatar_torch.config import Config, build_parser, extract_config, ignored_flags_note
 
     parser = ArgumentParser(description="Novel view rendering parameters")
     build_parser(parser)
@@ -39,19 +42,19 @@ def main(argv=None):
     if args.model_path and os.path.exists(cfg_path):
         saved = Config.load(cfg_path)
     cfg = extract_config(args, saved)
-    print(ignored_raster_note())
+    print(ignored_flags_note())
 
     import torch
     from PIL import Image
 
     from gaussianavatar_torch.data.dataset import MonoDatasetNovelView
-    from gaussianavatar_torch.engine.inference import (
-        batch_from_item, load_fixed_inp, load_trained, make_renderer,
-    )
+    from gaussianavatar_torch.engine.inference import batch_from_item, load_trained, make_renderer
     from gaussianavatar_torch.models import body as body_mod
 
     inf = load_trained(cfg, args.epoch, device=args.device)
-    fix_inp = load_fixed_inp(cfg.model)
+    if cfg.model.train_stage == 2 and cfg.model.fixed_inp:
+        print("warning: a --fixed_inp stage-2 avatar: the orbit decodes with no pose feature "
+              "map, as the JAX render_novel_view.py does (ROADMAP F11)")
     ds = MonoDatasetNovelView(cfg.model)
     H, W = ds.image_hw()
 
@@ -82,7 +85,7 @@ def main(argv=None):
         print(f"orbiting pose {pose_idx}: {args.frames} frames at {W}x{H}")
         for start in range(0, args.frames, REN_B):
             idxs = range(start, min(start + REN_B, args.frames))
-            singles = [batch_from_item(ds[i], fix_inp) for i in idxs]
+            singles = [batch_from_item(ds[i]) for i in idxs]
             batch = {k: np.concatenate([s[k] for s in singles]) for k in singles[0]}
             imgs = render(batch).cpu().numpy()
             for j, i in enumerate(idxs):

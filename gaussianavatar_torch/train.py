@@ -95,7 +95,7 @@ def run_training(args, cfg):
     data-parallel group (on the group's device)."""
     import torch
 
-    from gaussianavatar_torch.config import ignored_raster_note
+    from gaussianavatar_torch.config import ignored_flags_note
     from gaussianavatar_torch.engine.loop import train
     from gaussianavatar_torch.ops.lpips import try_load_lpips
     from gaussianavatar_torch.parallel import mesh
@@ -111,7 +111,7 @@ def run_training(args, cfg):
         if args.quiet:
             stack.enter_context(contextlib.redirect_stdout(stack.enter_context(
                 open(os.devnull, "w"))))
-        print(ignored_raster_note())
+        print(ignored_flags_note())
         print("Optimizing " + cfg.model.model_path)
         lpips_fn, lpips_note = None, None
         if args.no_lpips:

@@ -42,7 +42,7 @@ def subject_names(sources):
 def main(argv=None, timeout_s=None):
     """`timeout_s` bounds a `--dp` run: its ranks are stopped and the call
     raises if they have not all finished by then."""
-    from gaussianavatar_torch.config import build_parser, extract_config, ignored_raster_note
+    from gaussianavatar_torch.config import build_parser, extract_config, ignored_flags_note
 
     parser = ArgumentParser(description="Multi-subject training parameters")
     build_parser(parser)
@@ -80,7 +80,7 @@ def main(argv=None, timeout_s=None):
 
     saving_epochs = sorted(set(args.save_epochs + [cfgs[0].opt.epochs]))
     if not args.quiet:
-        print(ignored_raster_note())
+        print(ignored_flags_note())
         print(f"Optimizing {len(cfgs)} subjects into {out_root} "
               f"({len(cfgs)} subjects x dp {args.dp}): {', '.join(names)}")
     run_args = (cfgs, saving_epochs, args.checkpoint_epochs, args.device, args.max_steps,

@@ -24,7 +24,10 @@ _PKG = dirname(dirname(abspath(__file__)))
 BUILD_DIR = join(dirname(_PKG), "build", "kernels")
 
 # kernel name -> source under the package
-SOURCES = {"blend_fwd": "csrc/blend_fwd.cu", "blend_bwd": "csrc/blend_bwd.cu"}
+SOURCES = {"blend_fwd": "csrc/blend_fwd.cu", "blend_bwd": "csrc/blend_bwd.cu",
+           "decoder_stats": "csrc/decoder_stats.cu",
+           "decoder_stage_fwd": "csrc/decoder_stage_fwd.cu",
+           "decoder_stage_bwd": "csrc/decoder_stage_bwd.cu"}
 
 # kernel name -> launches so far in this process. Each wrapper adds one
 # where it launches its kernel, and nowhere else, so a run can show which
@@ -36,12 +39,19 @@ def launches_since(before: Dict[str, int]) -> Dict[str, int]:
     """Each kernel's launches since `before`, a copy of LAUNCHES."""
     return {name: n - before.get(name, 0) for name, n in LAUNCHES.items()}
 
-# -fmad=false: no fused multiply-adds, so the kernels round after every
-# multiply and add exactly as their plain PyTorch versions do; the gating
-# tests (alpha >= 1/255, T >= 1e-4) then decide the same way on both, and
-# the per-pixel gradient terms agree bit for bit.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# -fmad=false for the blend kernels: no fused multiply-adds, so they round
+# after every multiply and add exactly as their plain PyTorch versions do;
+# the gating tests (alpha >= 1/255, T >= 1e-4) then decide the same way on
+# both, and the per-pixel gradient terms agree bit for bit. The decoder's
+# kernels keep nvcc's default: their products accumulate with one rounding
+# per fused multiply-add, as cuBLAS does for the plain versions.
+EXTRA_FLAGS = {"blend_fwd": ("-fmad=false",), "blend_bwd": ("-fmad=false",)}
+
+
+def nvcc_flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 
 class BuildResult(NamedTuple):
@@ -69,7 +79,7 @@ def _lib_path(name: str) -> str:
     it and the flags."""
     src = join(_PKG, SOURCES[name])
     csrc = dirname(src)
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(nvcc_flags(name)).encode())
     for path in [src] + sorted(join(csrc, n) for n in os.listdir(csrc) if n.endswith(".cuh")):
         with open(path, "rb") as f:
             h.update(f.read())
@@ -87,7 +97,7 @@ def build_all(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, BuildResult]:
             results[name] = BuildResult(out, 0.0, "")
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, join(_PKG, SOURCES[name])]
+        cmd = [nvcc_path(), *nvcc_flags(name), "-o", tmp, join(_PKG, SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        out, tmp, time.perf_counter())

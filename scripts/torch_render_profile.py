@@ -8,9 +8,11 @@ ops/rasterize_tile.py open around pose_gaussians, the attributes, the
 projection, the binning, the blend and the untile. Per call it prints, for
 each stage, the host time inside the range and the device time of the
 kernels launched in it; then the wall time of a call, the device-busy share
-(kernel time over wall) and the kernels by device time.
+(kernel time over wall) and the kernels by device time. `--fused_decoder`
+renders through the fused decoder (its H-dfwd stages; the decode has no
+range of its own, so its kernels show by name).
 
-    python3 scripts/torch_render_profile.py [--calls 8]
+    python3 scripts/torch_render_profile.py [--calls 8] [--fused_decoder]
 """
 
 import argparse
@@ -63,6 +65,8 @@ def range_times(events, prefixes, since=None):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--calls", type=int, default=8)
+    ap.add_argument("--fused_decoder", action="store_true",
+                    help="decode through ShapeDecoderFused")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_render_profile: needs CUDA", file=sys.stderr)
@@ -72,7 +76,7 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(card)
-    s = chip_smoke.make_slice("cuda")
+    s = chip_smoke.make_slice("cuda", "fused" if args.fused_decoder else "ref")
     n = args.calls
     batches = [s.batch_for(s.B * i) for i in range(n)]
     for b in batches:  # warm-up: kernel build, allocator, cuBLAS handles
@@ -93,7 +97,8 @@ def main():
         wall_ms = (time.perf_counter() - t0) * 1e3
     host, dev, kernels, how = range_times(prof.events(), ("render::",))
     busy_ms = sum(kernels.values())
-    print(f"stage-1 render, {s.B} frames of {s.H}x{s.W} per call, {n} calls under "
+    print(f"stage-1 render ({'fused' if args.fused_decoder else 'reference'} decoder), "
+          f"{s.B} frames of {s.H}x{s.W} per call, {n} calls under "
           f"torch.profiler, per call, on {card}:")
     print(f"  {'range':26s} {'host ms':>9s} {'device ms':>10s}  (device: {how})")
     for name in sorted(host, key=lambda k: -dev[k]):

@@ -23,10 +23,18 @@ chip_smoke.py's phase 8; the weights stand in for pretrained ones, whose
 times are the same. `--aiap` trains with the AIAP regulariser (`--use_aiap`,
 its term in `train::aiap` inside `train::loss`) and `--pos_encoding` with
 the decoder's uv inputs encoded (`--pos_encoding 1`), as chip_smoke.py's
-phase 9 (a).
+phase 9 (a). `--fused_decoder` trains through the fused decoder
+(`--fused_decoder 1`, its kernels H-dstat, H-dfwd and H-dbwd), as
+chip_smoke.py's phase 11. Last, the step's decode alone, forward and
+backward, in `--steps` more rounds under the profiler on the same
+configuration (the network freshly built from seed 0, the backward of a
+random cotangent of its outputs): the device time of the forward's
+kernels, and of the round's other kernels (the backward's), which the
+step's ranges cannot separate (the decoder's backward runs inside
+`train::backward`).
 
     python3 scripts/torch_train_profile.py [--steps 20] [--warmup 10] [--stage 2] [--lpips]
-        [--aiap] [--pos_encoding]
+        [--aiap] [--pos_encoding] [--fused_decoder]
 """
 
 import argparse
@@ -52,6 +60,7 @@ def main():
                     help="train with the LPIPS term (random weights of the exact layout)")
     ap.add_argument("--aiap", action="store_true", help="train with --use_aiap")
     ap.add_argument("--pos_encoding", action="store_true", help="train with --pos_encoding 1")
+    ap.add_argument("--fused_decoder", action="store_true", help="train with --fused_decoder 1")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_train_profile: needs CUDA", file=sys.stderr)
@@ -86,11 +95,13 @@ def main():
                      **random_lpips_weights(0))
             argv = [a for a in argv if a != "--no_lpips"] + [
                 "--project_path", proj, "--lpips_start_iter", "0"]
-        argv += ["--use_aiap"] * args.aiap + ["--pos_encoding", "1"] * args.pos_encoding
+        argv += ["--use_aiap"] * args.aiap + ["--pos_encoding", "1"] * args.pos_encoding \
+            + ["--fused_decoder", "1"] * args.fused_decoder
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             train_cli.main(argv)
             torch.cuda.synchronize()
+        decode = decode_alone(argv, args.warmup, args.steps, acts, range_times)
     events = prof.events()
     cpu = torch.autograd.DeviceType.CPU
     steps = sorted((e.time_range.start, e.time_range.end) for e in events
@@ -103,7 +114,8 @@ def main():
     wall_ms = (until - since) / 1e3
     busy_ms = sum(kernels.values())
     terms = [name for name, on in (("LPIPS", args.lpips), ("AIAP", args.aiap),
-                                   ("the positional encoding", args.pos_encoding)) if on]
+                                   ("the positional encoding", args.pos_encoding),
+                                   ("the fused decoder", args.fused_decoder)) if on]
     print(f"stage-{args.stage} training{' with ' + ', '.join(terms) if terms else ''}, "
           "B=2 of 512x512, "
           f"canonical widths, steps {args.warmup + 1}-"
@@ -116,7 +128,59 @@ def main():
     print("kernels by device time, per step:")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {ms / n:8.3f} ms  {100 * ms / busy_ms:5.1f}%  {name[:90]}")
+    rows, (d_host, d_dev, d_kernels) = decode
+    # the backward's kernels run on autograd's thread, outside its range's
+    # device span: its device time is the round's kernels less the forward's
+    fwd = d_dev["decode::forward"]
+    dev_ms = {"decode::forward": fwd, "decode::backward": sum(d_kernels.values()) - fwd}
+    print(f"the decode alone ({'fused' if args.fused_decoder else 'reference'} decoder, "
+          f"{rows} rows), {args.steps} rounds after {args.warmup}, per round, on {card}:")
+    for name in ("decode::forward", "decode::backward"):
+        print(f"  {name:26s} {d_host[name] / args.steps:9.3f} host ms "
+              f"{dev_ms[name] / args.steps:10.3f} device ms")
+    print("  its kernels by device time, per round:")
+    for name, ms in sorted(d_kernels.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {ms / args.steps:8.3f} ms  {name[:90]}")
     return 0
+
+
+def decode_alone(argv, warmup, rounds, acts, range_times):
+    """The training configuration's decode, forward then backward, `warmup`
+    + `rounds` times under the profiler -> (rows it decodes, (host ms,
+    device ms, device ms by kernel) of the decode::forward and
+    decode::backward ranges over the last `rounds`)."""
+    from torch.profiler import record_function
+
+    from gaussianavatar_torch.config import build_parser, extract_config
+    from gaussianavatar_torch.engine.setup import setup_avatar
+
+    cfg = extract_config(build_parser().parse_known_args(argv)[0])
+    torch.manual_seed(0)
+    bundle = setup_avatar(cfg, device="cuda", train=True)
+    net, assets = bundle.net.train(), bundle.assets
+    B = cfg.model.batch_size
+    inp = None
+    if cfg.model.train_stage == 2:
+        S = cfg.model.inp_posmap_size
+        inp = torch.rand((B, 3, S, S), generator=torch.Generator().manual_seed(0)).cuda()
+    outs = net.decode(assets, 1 if inp is None else B, inp)[:3]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cots = [torch.randn(o.shape, device="cuda", generator=gen) for o in outs]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(warmup + rounds):
+            torch.cuda.synchronize()
+            with record_function("decode::forward"):
+                outs = net.decode(assets, 1 if inp is None else B, inp)[:3]
+            with record_function("decode::backward"):
+                torch.autograd.backward(outs, cots)
+            net.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+    events = prof.events()
+    cpu = torch.autograd.DeviceType.CPU
+    starts = sorted(e.time_range.start for e in events
+                    if e.name == "decode::forward" and e.device_type == cpu)
+    host, dev, kernels, _ = range_times(events, ("decode::",), starts[warmup])
+    return outs[0].shape[0] * outs[0].shape[1], (host, dev, kernels)
 
 
 if __name__ == "__main__":

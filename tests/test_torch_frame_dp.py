@@ -78,15 +78,18 @@ class SGD:
 
 def _port_step(inputs, sync=True):
     """One SGD(1.0) step of the port from `inputs` (the saved state, banks,
-    batch and gates) on this process's share of the batch (the whole batch
-    outside a group) -> (state_dict after, terms, gradients)."""
+    batch, gates and decoder) on this process's share of the batch (the
+    whole batch outside a group) -> (state_dict after, terms, gradients).
+    `sync` False: no BatchNorm syncs; "decoder": all but the fused
+    decoder's."""
     stage = inputs["stage"]
     tm, uv = synthetic_body()
     J = tm.parents.shape[0]
     ta = build_avatar_assets(tm, uv.verts, uv.uvs, uv.faces_v, uv.faces_vt,
                              np.zeros(J * 3, np.float32), np.zeros(4, np.float32),
                              query_res=32, pad_to=64, device="cpu")
-    net = AvatarNet(pose_dim=J * 3, device="cpu", **NET_KW[stage])
+    net = AvatarNet(pose_dim=J * 3, device="cpu", decoder_impl=inputs.get("decoder_impl", "ref"),
+                    **NET_KW[stage])
     net.load_state_dict(inputs["sd"])
     if stage == 2:
         for name in FROZEN:
@@ -95,8 +98,16 @@ def _port_step(inputs, sync=True):
     step = make_train_step(net, tm, ta, inputs["opt_cfg"], H, W, (1.0, 1.0, 1.0), TCFG,
                            inputs["bank"], train_stage=stage, inp_bank=inputs["inp_bank"])
     batch = mesh.shard_batch(inputs["batch"], mesh.group())
-    with contextlib.nullcontext() if sync else \
-            mock.patch.object(mesh, "syncs_batch_stats", lambda: False):
+    if sync is True:
+        ctx = contextlib.nullcontext()
+    elif sync == "decoder":
+        from gaussianavatar_torch.models import decoder
+
+        ctx = mock.patch.object(decoder, "mesh", mock.Mock(
+            syncs_batch_stats=lambda: False, global_sum=mesh.global_sum))
+    else:
+        ctx = mock.patch.object(mesh, "syncs_batch_stats", lambda: False)
+    with ctx:
         terms, _ = step(state, batch, *inputs["gates"])
     return ({k: v.clone() for k, v in net.state_dict().items()},
             {k: float(v) for k, v in terms.items()}, state.optimizer.grads)
@@ -109,11 +120,19 @@ def _dp_rank(work):
     out = {"sync": _port_step(inputs)}
     if inputs["stage"] == 2:
         out["nosync"] = _port_step(inputs, sync=False)
+        if inputs.get("decoder_impl") == "fused":
+            out["nodecsync"] = _port_step(inputs, sync="decoder")
     torch.save(out, os.path.join(work, f"rank{mesh.group().rank}.pt"))
 
 
 @pytest.fixture(scope="module", params=[1, 2], ids=["stage1", "stage2"])
 def runs(request, tmp_path_factory):
+    return make_runs(request.param, tmp_path_factory)
+
+
+def make_runs(stage, tmp_path_factory, decoder_impl="ref"):
+    """The JAX step, the port's unsharded step and the dp = 2 ranks' steps
+    of `stage` from one JAX init_state, both packages on `decoder_impl`."""
     import jax
     import jax.numpy as jnp
 
@@ -130,7 +149,6 @@ def runs(request, tmp_path_factory):
 
     from test_torch_train import JCFG, _TX0, _record_grads
 
-    stage = request.param
     to_np = lambda t: jax.tree.map(np.asarray, t)
     jm, uv = j_synthetic_body()
     J = jm.parents.shape[0]
@@ -138,7 +156,7 @@ def runs(request, tmp_path_factory):
                         np.zeros(J * 3, np.float32), np.zeros(4, np.float32),
                         query_res=32, pad_to=64)
     poses = np.stack([synthetic_pose(jm, t / N_FRAMES) for t in range(N_FRAMES)])
-    jnet = JAvatarNet(pose_dim=J * 3, pose_init=poses, **NET_KW[stage])
+    jnet = JAvatarNet(pose_dim=J * 3, pose_init=poses, decoder_impl=decoder_impl, **NET_KW[stage])
     st0 = jax.jit(lambda key: init_state(jnet, ja, _TX0(), rng=key, batch_size=B))(
         jax.random.PRNGKey(7 + stage))
     st0 = st0.replace(iteration=jnp.int32(START_IT))
@@ -173,8 +191,8 @@ def runs(request, tmp_path_factory):
 
     inputs = {"stage": stage, "sd": sd0, "bank": torch.tensor(bank),
               "inp_bank": torch.tensor(inp) if stage == 2 else None, "batch": batch,
-              "gates": gates, "opt_cfg": OptimizationParams()}
-    work = str(tmp_path_factory.mktemp(f"dp_stage{stage}"))
+              "gates": gates, "opt_cfg": OptimizationParams(), "decoder_impl": decoder_impl}
+    work = str(tmp_path_factory.mktemp(f"dp_stage{stage}_{decoder_impl}"))
     torch.save(inputs, os.path.join(work, "inputs.pt"))
     full = _port_step(inputs)
     mesh.spawn_ranks(_dp_rank, DP, "cpu", (work,), timeout_s=JOIN_TIMEOUT_S)

@@ -1,13 +1,15 @@
 """Rules of the port: it imports nothing of JAX, its entry points run on the
 card unless asked for the CPU and never fall back on their own, its config
-and checkpoint files interoperate, and H-fwd and H-bwd build, count their
-launches, refuse what they do not take and match their plain versions on
-the card (those tests skip without CUDA)."""
+and checkpoint files interoperate, and its kernels (H-fwd, H-bwd and the
+fused decoder's H-dstat, H-dfwd, H-dbwd) build, count their launches,
+refuse what they do not take and match their plain versions on the card
+(those tests skip without CUDA)."""
 
 import ast
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -101,6 +103,30 @@ def test_backward_kernel_call_raises_instead_of_falling_back(monkeypatch):
         tt.blend_tiles_bwd(meta((8, 16)), meta((8,), torch.int32), meta((5,), torch.int32),
                            2, 16, 4, meta((4, 256)), meta((4, 256), torch.int32),
                            meta((4, 3, 256)), meta((4, 256)))
+
+
+@pytest.mark.parametrize("kernel", ["decoder_stats", "decoder_stage_fwd", "decoder_stage_bwd"])
+def test_decoder_kernel_call_raises_instead_of_falling_back(monkeypatch, kernel):
+    """As above, for the fused decoder's three kernels."""
+    from gaussianavatar_torch.ops import decoder_stage as ds
+    from gaussianavatar_torch.utils import cuda_build
+
+    def broken_loader(name):
+        raise RuntimeError(f"cannot build {name}")
+
+    def plain_must_not_run(*a, **kw):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(cuda_build, "load_library", broken_loader)
+    for name in ("column_stats_plain", "stage_fwd_plain", "stage_bwd_plain"):
+        monkeypatch.setattr(ds, name, plain_must_not_run)
+    meta = lambda *shape, dt=torch.bfloat16: torch.empty(shape, dtype=dt, device="meta")
+    call = {"decoder_stats": lambda: ds.column_stats(meta(64, 128)),
+            "decoder_stage_fwd": lambda: ds.stage_fwd(meta(64, 128), meta(128, 128),
+                                                      meta(128), "softplus"),
+            "decoder_stage_bwd": lambda: ds.stage_bwd(meta(64, 128), meta(64, 128), "softplus")}
+    with pytest.raises(RuntimeError, match=f"cannot build {kernel}"):
+        call[kernel]()
 
 
 def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
@@ -234,8 +260,28 @@ def test_cfg_args_interoperate(tmp_path):
     targs = tconfig.build_parser().parse_args(["--render_max_tiles_per_gaussian", "9"])
     merged = tconfig.extract_config(targs, tcfg)
     assert merged.raster.render_max_tiles_per_gaussian == 9 and merged.raster.tile_size == 16
-    note = tconfig.ignored_raster_note()
+    note = tconfig.ignored_flags_note()
     assert "ragged_budget" in note and "auto_cascade" in note and "tile_size" not in note
+
+
+def test_startup_note_names_every_flag_the_port_ignores():
+    """The startup note names each config field the port's code never reads
+    (as an attribute or a quoted name, outside config.py), and no field it
+    reads: the raster knobs outside PORT_RASTER_FIELDS, steps_per_dispatch,
+    cache_frames and the fields neither package reads. fused_decoder, which
+    the port acts on, is not among them."""
+    src = "".join(open(f).read() for f in _port_files()
+                  if f.startswith(PKG) and not f.endswith("config.py"))
+    note = tconfig.ignored_flags_note()
+    named = lambda name: re.search(rf"\b{name}\b", note) is not None
+    for cls in (tconfig.ModelParams, tconfig.NetworkParams, tconfig.OptimizationParams):
+        for f in dataclasses.fields(cls):
+            read = re.search(rf'\.{f.name}\b|"{f.name}"', src) is not None
+            assert named(f.name) != read, f.name
+    for f in dataclasses.fields(tconfig.RasterParams):
+        assert named(f.name) == (f.name not in tconfig.PORT_RASTER_FIELDS), f.name
+    assert named("steps_per_dispatch") and named("cache_frames")
+    assert not named("fused_decoder")
 
 
 def test_checkpoint_roundtrip(tmp_path):
@@ -427,3 +473,96 @@ def test_blend_bwd_kernel_rules_on_card(cuda_device):
     with pytest.raises(ValueError, match="aligned"):
         tt.blend_tiles(shifted, *args[1:])
     assert cuda_build.LAUNCHES["blend_bwd"] == before + 1
+
+
+def _ulp(t):
+    """One ulp of each element of t (bfloat16 or float32), at least the
+    smallest normal number's."""
+    a = t.float().abs().clamp_min(2.0**-126)
+    return torch.exp2(torch.floor(torch.log2(a)) - (7 if t.dtype == torch.bfloat16 else 23))
+
+
+def _decoder_stage_inputs(device, C, x_dtype, cdt, R):
+    """A stage's input (positive, as an activation, except the float32
+    first stage's), folded weights, bias and an output cotangent."""
+    g = torch.Generator().manual_seed(C + R)
+    x = torch.randn(R, C, generator=g)
+    if x_dtype == torch.bfloat16:
+        x = torch.nn.functional.softplus(x)
+    Wp = torch.randn(C, 128, generator=g) / C ** 0.5
+    bp = 0.1 * torch.randn(128, generator=g)
+    cot = 1e-2 * torch.randn(R, 128, generator=g)
+    return (x.to(x_dtype).to(device), Wp.to(cdt).to(device), bp.to(cdt).to(device),
+            cot.to(cdt).to(device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["softplus", "relu"])
+@pytest.mark.parametrize("C,x_dtype,cdt", [
+    (66, torch.float32, torch.bfloat16), (128, torch.bfloat16, torch.bfloat16),
+    (194, torch.bfloat16, torch.bfloat16), (128, torch.float32, torch.float32),
+    (88, torch.float32, torch.float32)], ids=["in66-bf16", "128-bf16", "194-bf16", "128-f32",
+                                              "in88-f32"])
+def test_decoder_kernels_match_plain_on_card(cuda_device, C, x_dtype, cdt, act):
+    """H-dstat, H-dfwd and H-dbwd against their plain versions on one
+    stage's inputs (5,003 rows: a ragged last tile). H-dstat: the Gram and
+    the column sums within 1e-5 of their largest |entry| (float32 sums in
+    another order), two runs bit-identical. H-dfwd: bfloat16 within one
+    ulp of the output's largest magnitude (the product's sum order may flip
+    a rounding), float32 within 1e-5 of it. H-dbwd: du within one ulp of
+    each element, the bias gradient within 1e-5 of the largest column's
+    sum of |du|, two runs bit-identical. One launch each per call."""
+    from gaussianavatar_torch.ops import decoder_stage as ds
+    from gaussianavatar_torch.utils import cuda_build
+
+    x, Wp, bp, cot = _decoder_stage_inputs(cuda_device, C, x_dtype, cdt, 5003)
+    before = dict(cuda_build.LAUNCHES)
+    s1, g1 = ds.column_stats(x)
+    s2, g2 = ds.column_stats(x)
+    sp, gp = ds.column_stats_plain(x)
+    assert torch.equal(s1, s2) and torch.equal(g1, g2)
+    assert float((g1 - gp).abs().max()) <= 1e-5 * float(gp.abs().max())
+    assert float((s1 - sp).abs().max()) <= 1e-5 * float(sp.abs().max())
+
+    z = ds.stage_fwd(x, Wp, bp, act)
+    zp = ds.stage_fwd_plain(x, Wp, bp, act)
+    assert z.dtype == cdt and z.shape == (x.shape[0], 128)
+    tol = float(_ulp(zp.abs().max())) if cdt == torch.bfloat16 else \
+        1e-5 * float(zp.abs().max())
+    assert float((z.float() - zp.float()).abs().max()) <= tol
+
+    du1, db1 = ds.stage_bwd(cot, zp, act)
+    du2, db2 = ds.stage_bwd(cot, zp, act)
+    dup, dbp = ds.stage_bwd_plain(cot, zp, act)
+    assert torch.equal(du1, du2) and torch.equal(db1, db2)
+    assert bool(((du1.float() - dup.float()).abs() <= _ulp(dup)).all())
+    scale = float(dup.float().abs().sum(0).max())
+    assert float((db1 - dbp).abs().max()) <= 1e-5 * scale
+    assert cuda_build.launches_since(before) == {
+        **{k: 0 for k in cuda_build.LAUNCHES}, "decoder_stats": 2, "decoder_stage_fwd": 1,
+        "decoder_stage_bwd": 2}
+
+
+@pytest.mark.gpu
+def test_decoder_kernel_rules_on_card(cuda_device):
+    """The decoder kernels refuse CPU tensors, wrong types, shapes, widths
+    and unaligned tensors instead of running."""
+    from gaussianavatar_torch.ops import decoder_stage as ds
+    from gaussianavatar_torch.utils import cuda_build
+
+    x, Wp, bp, cot = _decoder_stage_inputs(cuda_device, 128, torch.bfloat16, torch.bfloat16, 256)
+    before = dict(cuda_build.LAUNCHES)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda_device)[1:].view_as(x)
+    bad = [lambda: ds.column_stats(x.half()),
+           lambda: ds.column_stats(shifted),
+           lambda: ds.stage_fwd(x, Wp.float(), bp.float(), "softplus"),   # bf16 x, f32 mode
+           lambda: ds.stage_fwd(x, Wp[:, :64].contiguous(), bp[:64], "softplus"),
+           lambda: ds.stage_fwd(x[:, :127], Wp[:127], bp, "softplus"),
+           lambda: ds.stage_fwd(x, Wp, bp, "gelu"),
+           lambda: ds.stage_bwd(cot, cot.float(), "softplus"),
+           lambda: ds.stage_bwd(cot[:, :96].contiguous(), cot[:, :96].contiguous(), "relu"),
+           lambda: ds.stage_bwd(cot, cot.cpu(), "relu")]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    assert cuda_build.launches_since(before) == {k: 0 for k in cuda_build.LAUNCHES}
