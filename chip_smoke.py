@@ -99,14 +99,17 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      (csrc/decoder_stats.cu), H-dfwd (csrc/decoder_stage_fwd.cu) and H-dbwd
      (csrc/decoder_stage_bwd.cu), against their plain versions on random
      inputs at the canonical stage shapes (445,568 rows; 66 float32, 128
-     and 194 bfloat16 inputs, and the float32 decoder's 128), each timed
-     beside its bound and its library yardstick; (b) `train --fused_decoder
-     1` on phase 5's data, 30 steps (it/s and peak memory beside phase
-     5's), 10 at the float32 decoder, and 3 stage-2 steps from phase 7's
-     stage-1 save, launches exact (9 H-dstat, 11 H-dfwd and 11 H-dbwd per
-     training decode, 11 H-dfwd per eval-mode decode), each run's last
-     decoder inputs held against the plain versions; (c) phase 5's
-     reference checkpoint through both decoders (eval, render_novel_pose)
+     and 194 bfloat16 inputs, and the float32 decoder's 128) and at the
+     other widths the JAX decoder takes (hsize 64, 96, 256; an odd
+     c_geom), each timed beside its bound and its library yardstick; (b)
+     `train --fused_decoder 1` on phase 5's data, 30 steps (it/s and peak
+     memory beside phase 5's), 10 at the float32 decoder, 3 stage-2 steps
+     from phase 7's stage-1 save, and 5 steps each at --hsize 96
+     --c_geom 63 and at --hsize 256, launches exact (9 H-dstat, 11 H-dfwd
+     and 11 H-dbwd per training decode, 11 H-dfwd per eval-mode decode),
+     each run's last decoder inputs held against the plain versions; (c)
+     phase 5's reference checkpoint through both decoders (eval,
+     render_novel_pose)
      and (b)'s fused one through the reference decoder, all at the float32
      decoder, each reading
      within a limit that a control (one BatchNorm's running variance x
@@ -1742,6 +1745,25 @@ DECODER_CASES = (("first stage, bf16 decoder", 66, "float32", "bfloat16"),
                  ("hidden stage, bf16 decoder", 128, "bfloat16", "bfloat16"),
                  ("skip stage, bf16 decoder", 194, "bfloat16", "bfloat16"),
                  ("hidden stage, f32 decoder", 128, "float32", "float32"))
+# the other widths the JAX decoder takes (--hsize H: the stage inputs 66, H
+# and 66 + H; --c_geom 63: an odd first and skip stage, 65 and 193 at
+# H = 128), held at the same rows and limits and timed: (label, C, x dtype,
+# compute dtype, H)
+DECODER_WIDTH_CASES = tuple(
+    (f"hsize {H}, {what}", C, x_dt, cdt, H)
+    for H in (64, 96, 256)
+    for what, C, x_dt, cdt in (("first stage", 66, "float32", "bfloat16"),
+                               ("hidden stage", H, "bfloat16", "bfloat16"),
+                               ("skip stage", 66 + H, "bfloat16", "bfloat16"))) + (
+    ("c_geom 63, first stage", 65, "float32", "bfloat16", 128),
+    ("c_geom 63, skip stage", 193, "bfloat16", "bfloat16", 128),
+    ("hsize 96, f32 decoder, first stage", 66, "float32", "float32", 96),
+    ("hsize 256, f32 decoder, skip stage", 322, "float32", "float32", 256),
+    ("c_geom 63, f32 decoder, first stage", 65, "float32", "float32", 128))
+# short fused trainings at the other widths through the CLI (F15)
+WIDTH_RUNS = (("hsize 96, c_geom 63", ["--hsize", "96", "--c_geom", "63"]),
+              ("hsize 256", ["--hsize", "256"]))
+WIDTH_STEPS = 5
 # f32 operations per element of the epilogues (softplus: the bias add, max,
 # |.|, exp, log1p, the sum) and of H-dbwd (negation, exp, 1 - ., the
 # product, the column sum); exp counts as one operation, so the bounds err low
@@ -1783,19 +1805,19 @@ def _ulp(t):
     return torch.exp2(torch.floor(torch.log2(a)) - (7 if t.dtype == torch.bfloat16 else 23))
 
 
-def _decoder_case(C, x_dtype, cdt, device, R=DECODER_ROWS):
+def _decoder_case(C, x_dtype, cdt, device, R=DECODER_ROWS, H=128):
     """Random inputs of one stage at its real width: x (positive, as an
     activation, except the first stage's features), folded weights and
-    bias, and an output cotangent, from seed C."""
+    bias, and an output cotangent, from seed C (C + 1000 H off H = 128)."""
     import torch
 
-    g = torch.Generator(device=device).manual_seed(C)
+    g = torch.Generator(device=device).manual_seed(C if H == 128 else C + 1000 * H)
     x = torch.randn(R, C, generator=g, device=device)
     if x_dtype == "bfloat16":
         x = torch.nn.functional.softplus(x)
-    Wp = torch.randn(C, 128, generator=g, device=device) / C ** 0.5
-    bp = 0.1 * torch.randn(128, generator=g, device=device)
-    cot = 1e-3 * torch.randn(R, 128, generator=g, device=device)
+    Wp = torch.randn(C, H, generator=g, device=device) / C ** 0.5
+    bp = 0.1 * torch.randn(H, generator=g, device=device)
+    cot = 1e-3 * torch.randn(R, H, generator=g, device=device)
     dt = lambda name: getattr(torch, name)
     return x.to(dt(x_dtype)), Wp.to(dt(cdt)), bp.to(dt(cdt)), cot.to(dt(cdt))
 
@@ -1834,8 +1856,8 @@ def _hold_fwd(label, x, Wp, bp, act):
     bf16 = Wp.dtype == torch.bfloat16
     tol = float(_ulp(big.to(Wp.dtype))) if bf16 else TOL_DFWD_F32 * float(big)
     err, moved = float(d.max()), float((d > 0).float().mean())
-    print(f"  {label}, H-dfwd ({x.shape[1]} -> 128, {act}, {str(Wp.dtype)[6:]}): max|d z| "
-          f"{err:.3e} (tol {tol:.3e}: " + ("one bf16 ulp of" if bf16 else
+    print(f"  {label}, H-dfwd ({x.shape[1]} -> {Wp.shape[1]}, {act}, {str(Wp.dtype)[6:]}): "
+          f"max|d z| {err:.3e} (tol {tol:.3e}: " + ("one bf16 ulp of" if bf16 else
                                             f"{TOL_DFWD_F32:g} x") + f" max|z| {float(big):.3g}), "
           f"{100 * moved:.3f}% of elements differ")
     if not err <= tol or not bool(torch.isfinite(z).all()):
@@ -1859,7 +1881,8 @@ def _hold_bwd(label, g, z, act):
     over = int((d > _ulp(dup)).sum())
     scale = float(dup.float().abs().sum(0).max())
     rdb = float((db1 - dbp).abs().max()) / max(scale, 1e-30)
-    print(f"  {label}, H-dbwd ({act}, {str(z.dtype)[6:]}): max|d du| {float(d.max()):.3e}, "
+    print(f"  {label}, H-dbwd ({z.shape[1]} wide, {act}, {str(z.dtype)[6:]}): max|d du| "
+          f"{float(d.max()):.3e}, "
           f"{over} elements over one ulp (tol 0); bias gradient {rdb:.2e} of the largest "
           f"column's sum |du| (tol {TOL_DBWD_SUM:g}); two runs identical")
     if over or not rdb <= TOL_DBWD_SUM:
@@ -1867,39 +1890,44 @@ def _hold_bwd(label, g, z, act):
     return float(d.max())
 
 
-def _decoder_bounds(R, C, x_esize, c_esize, tensor_cores):
-    """Least times (ms, bound_by) of the three kernels on one stage: the
-    bytes (each input read once, each output written once) over HBM
-    bandwidth against the operations over the peak of their type."""
+def _decoder_bounds(R, C, H, x_esize, c_esize, tensor_cores):
+    """Least times (ms, bound_by) of the three kernels on one stage of
+    input width C and output width H: the bytes (each input read once, each
+    output written once) over HBM bandwidth against the operations over the
+    peak of their type. H-dstat's least work is the Gram's distinct entries,
+    R C (C + 1) operations (a product and an addition each) on x's type:
+    H-dstat's products run on the tensor cores only for bfloat16 input."""
     peak = BF16_FLOP_PER_S if tensor_cores else FP32_FLOP_PER_S
+    stat_peak = BF16_FLOP_PER_S if x_esize == 2 else FP32_FLOP_PER_S
 
     def bound(bytes_, t_ops):
         t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
         return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
-    stat = bound(R * C * x_esize + (C * C + C) * 4, (2 * R * C * C) / peak * 1e3
-                 + R * C / FP32_FLOP_PER_S * 1e3)
-    fwd = bound(R * C * x_esize + (C * 128 + 128) * c_esize + R * 128 * c_esize,
-                2 * R * C * 128 / peak * 1e3 + DFWD_EPILOGUE_FLOPS * R * 128 / FP32_FLOP_PER_S * 1e3)
-    bwd = bound(3 * R * 128 * c_esize + 128 * 4, DBWD_FLOPS * R * 128 / FP32_FLOP_PER_S * 1e3)
+    stat = bound(R * C * x_esize + (C * C + C) * 4, R * C * (C + 1) / stat_peak * 1e3)
+    fwd = bound(R * C * x_esize + (C * H + H) * c_esize + R * H * c_esize,
+                2 * R * C * H / peak * 1e3 + DFWD_EPILOGUE_FLOPS * R * H / FP32_FLOP_PER_S * 1e3)
+    bwd = bound(3 * R * H * c_esize + H * 4, DBWD_FLOPS * R * H / FP32_FLOP_PER_S * 1e3)
     return {"decoder_stats": stat, "decoder_stage_fwd": fwd, "decoder_stage_bwd": bwd}
 
 
 def _decoder_random_holds(device, card):
     """(a) the three kernels against their plain versions on random inputs
-    at the canonical stage shapes, each timed beside its bound and its
-    library yardstick -> ({kernel: numbers of the 128-wide bf16 stage},
-    {kernel: max |error|})."""
+    at the canonical stage shapes and at the other widths
+    (DECODER_WIDTH_CASES), each timed beside its bound and its library
+    yardstick -> ({kernel: numbers of the 128-wide bf16 stage}, {kernel:
+    max |error|})."""
     import torch
 
     from gaussianavatar_torch.ops import decoder_stage as ds
 
     errs = {k: 0.0 for k in DECODER_KERNELS}
     rows = {}
-    for label, C, x_dt, cdt in DECODER_CASES:
-        x, Wp, bp, cot = _decoder_case(C, x_dt, cdt, device)
+    cases = [c + (128,) for c in DECODER_CASES] + list(DECODER_WIDTH_CASES)
+    for label, C, x_dt, cdt, H in cases:
+        x, Wp, bp, cot = _decoder_case(C, x_dt, cdt, device, H=H)
         errs["decoder_stats"] = max(errs["decoder_stats"], _hold_stats(label, x))
-        acts = ("softplus", "relu") if C == 128 and cdt == "bfloat16" else ("softplus",)
+        acts = ("softplus", "relu") if C == H and cdt == "bfloat16" else ("softplus",)
         for act in acts:
             errs["decoder_stage_fwd"] = max(errs["decoder_stage_fwd"],
                                             _hold_fwd(label, x, Wp, bp, act))
@@ -1920,14 +1948,17 @@ def _decoder_random_holds(device, card):
                                   _time_ms(lambda: ds.stage_bwd_plain(cot, z, "softplus"),
                                            reps=5, warmup=1), None),
         }
-        bounds = _decoder_bounds(DECODER_ROWS, C, x.element_size(), Wp.element_size(),
+        bounds = _decoder_bounds(DECODER_ROWS, C, H, x.element_size(), Wp.element_size(),
                                  cdt == "bfloat16")
         for name, (ms, plain_ms, lib_ms) in t.items():
             b_ms, b_by = bounds[name]
             lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
             print(f"  {label}: {name} {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-                  f"({b_by}), library {lib} ({DECODER_ROWS} rows); on {card}")
-            if C == 128 and cdt == "bfloat16":
+                  f"({b_by}), library {lib} ({DECODER_ROWS} rows, {C} -> {H}); on {card}")
+            if ms < b_ms:
+                _fail(f"{label}: {name} reads {ms:.4f} ms, under its bound {b_ms:.4f} ms: the "
+                      "bound counts more work than the function needs")
+            if C == 128 and H == 128 and cdt == "bfloat16":
                 rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                               "bound_by": b_by, "library_ms": lib_ms}
         del x, Wp, bp, cot, z, xf, xc
@@ -2070,9 +2101,10 @@ def _control_copy(out, dst):
 
 def phase_fused_decoder(device, card, work, train_stats):
     """Phase 11: the fused decoder. (a) H-dstat, H-dfwd and H-dbwd against
-    their plain versions at the canonical stage shapes, timed; (b) stage-1
-    training through it (bf16, then f32) and stage 2 from phase 7's stage-1
-    save, exact launches, each run's last decoder inputs held; (c) the
+    their plain versions at the canonical stage shapes and the other widths,
+    timed; (b) stage-1 training through it (bf16, then f32), stage 2 from
+    phase 7's stage-1 save, and short stage-1 runs at --hsize 96 --c_geom 63
+    and --hsize 256, exact launches, each run's last decoder inputs held; (c) the
     checkpoints cross-loaded between the decoders through eval and
     render_novel_pose, against a perturbed control; (d) `--dp 2` against
     `--dp 1` in stage 2 (f32 decoder), against ranks whose fused decoder
@@ -2121,6 +2153,14 @@ def phase_fused_decoder(device, card, work, train_stats):
     if not all(math.isfinite(r["pose"]) and r["pose"] > 0 for r in steps_m.values()):
         _fail("fused stage 2: pose_loss not finite or no pose feature map")
     held(rec, "stage-2 last step")
+    # the other widths the JAX decoder takes (F15): short fused stage-1 runs
+    for label, flags in WIDTH_RUNS:
+        out = os.path.join(work, "fused_" + "_".join(flags[1::2]))
+        counts, rec, _ = _fused_train(f"stage 1, bf16 fused decoder, {label}",
+                                      _train_argv(data, out) + ["--fused_decoder", "1"] + flags,
+                                      out, WIDTH_STEPS, card)
+        add(counts)
+        held(rec, f"{label}, last step")
     print(f"  (b) in {time.perf_counter() - t_part:.1f} s")
 
     # (c) cross-loads: phase 5's reference checkpoint through both

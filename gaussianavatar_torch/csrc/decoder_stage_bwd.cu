@@ -18,9 +18,11 @@
 // What bounds it on the H100: the bytes, reading g and z and writing du
 // once (a 128-wide bfloat16 stage at R = 445,568: 342 MB, 0.102 ms at 3.35
 // TB/s); 5 operations per element (23 M elements) sit far under that. The
-// design: each thread owns two adjacent columns and walks rows (a warp
-// reads and writes 128 contiguous bytes of a bfloat16 row per step), about
-// 8 blocks per SM. Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py
+// design: where C is even and at most 512, each thread owns two adjacent
+// columns and walks rows (a warp reads and writes 128 contiguous bytes of a
+// bfloat16 row per step), 256 / (C / 2) row lanes a block (the threads past
+// them idle), about 8 blocks per SM; any other width (odd, or wider) takes
+// the scalar form, a column a thread. Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py
 // phase 11, 445,568 rows, bfloat16): 0.152 ms against the 0.102 ms bound.
 
 #include <cuda_bf16.h>
@@ -63,26 +65,48 @@ stage_bwd_partial(const typename P::Pair* __restrict__ g, const typename P::Pair
                   int R, int C, int rows_per_split, typename P::Pair* __restrict__ du,
                   float* __restrict__ work) {
   __shared__ float red[2 * kThreads];
-  const int pairs = C / 2;               // divides kThreads
+  const int pairs = C / 2;               // at most kThreads
   const int lanes = kThreads / pairs;
   const int cp = threadIdx.x % pairs, lane = threadIdx.x / pairs;
   const int r_begin = blockIdx.x * rows_per_split;
   const int r_end = min(R, r_begin + rows_per_split);
-  float s0 = 0.f, s1 = 0.f;
-  for (int r = r_begin + lane; r < r_end; r += lanes) {
-    const size_t i = static_cast<size_t>(r) * pairs + cp;
-    const float2 gv = P::load(g + i), zv = P::load(z + i);
-    const float2 d = P::store(du + i, dact(gv.x, zv.x, RELU), dact(gv.y, zv.y, RELU));
-    s0 += d.x;
-    s1 += d.y;
+  if (lane < lanes) {
+    float s0 = 0.f, s1 = 0.f;
+    for (int r = r_begin + lane; r < r_end; r += lanes) {
+      const size_t i = static_cast<size_t>(r) * pairs + cp;
+      const float2 gv = P::load(g + i), zv = P::load(z + i);
+      const float2 d = P::store(du + i, dact(gv.x, zv.x, RELU), dact(gv.y, zv.y, RELU));
+      s0 += d.x;
+      s1 += d.y;
+    }
+    red[lane * C + 2 * cp] = s0;
+    red[lane * C + 2 * cp + 1] = s1;
   }
-  red[lane * C + 2 * cp] = s0;
-  red[lane * C + 2 * cp + 1] = s1;
   __syncthreads();
   for (int c = threadIdx.x; c < C; c += kThreads) {
     float s = 0.f;
     for (int l = 0; l < lanes; ++l) s += red[l * C + c];
     work[static_cast<size_t>(blockIdx.x) * C + c] = s;
+  }
+}
+
+// Any width: thread t owns columns t, t + 256, ... and walks the split's
+// rows for each (a warp reads 32 adjacent elements of a row).
+template <typename T, bool RELU>
+__global__ void __launch_bounds__(kThreads)
+stage_bwd_scalar(const T* __restrict__ g, const T* __restrict__ z, int R, int C,
+                 int rows_per_split, T* __restrict__ du, float* __restrict__ work) {
+  const int r_begin = blockIdx.x * rows_per_split;
+  const int r_end = min(R, r_begin + rows_per_split);
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    float sum = 0.f;
+    for (int r = r_begin; r < r_end; ++r) {
+      const size_t i = static_cast<size_t>(r) * C + c;
+      const T d = T(dact(float(g[i]), float(z[i]), RELU));
+      du[i] = d;
+      sum += float(d);   // what was stored, as the sum must see it
+    }
+    work[static_cast<size_t>(blockIdx.x) * C + c] = sum;
   }
 }
 
@@ -93,6 +117,21 @@ __global__ void bwd_reduce(const float* __restrict__ work, int n_split, int C,
   float s = 0.f;
   for (int p = 0; p < n_split; ++p) s += work[static_cast<size_t>(p) * C + c];
   dbp[c] = s;
+}
+
+template <typename T>
+int launch_scalar(const void* g, const void* z, int relu, int R, int C, int n_split,
+                  int rows_per_split, void* work, void* du, cudaStream_t s) {
+  const auto* gg = static_cast<const T*>(g);
+  const auto* zz = static_cast<const T*>(z);
+  auto* dd = static_cast<T*>(du);
+  auto* ww = static_cast<float*>(work);
+  if (relu) {
+    stage_bwd_scalar<T, true><<<n_split, kThreads, 0, s>>>(gg, zz, R, C, rows_per_split, dd, ww);
+  } else {
+    stage_bwd_scalar<T, false><<<n_split, kThreads, 0, s>>>(gg, zz, R, C, rows_per_split, dd, ww);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename P>
@@ -113,20 +152,26 @@ int launch(const void* g, const void* z, int relu, int R, int C, int n_split,
 
 }  // namespace
 
-// g, z (R, C) contiguous, both float32 (bf16 0) or both bfloat16 (1); C a
-// power of two from 2 to 512; rows cut into n_split ranges of
-// rows_per_split; work holds n_split x C floats. Writes du (R, C) in g's
-// dtype and dbp (C,) float32.
+// g, z (R, C) contiguous, both float32 (bf16 0) or both bfloat16 (1), any
+// C >= 1; rows cut into n_split ranges of rows_per_split; work holds
+// n_split x C floats. Writes du (R, C) in g's dtype and dbp (C,) float32.
 extern "C" int ga_decoder_stage_bwd(const void* g, const void* z, int bf16, int relu, int R,
                                     int C, int n_split, int rows_per_split, void* work,
                                     void* du, void* dbp, void* stream) {
-  if (R < 0 || C < 2 || C > 2 * kThreads || C % 2 || kThreads % (C / 2) || n_split <= 0 ||
-      rows_per_split <= 0 || static_cast<long long>(n_split) * rows_per_split < R) {
+  if (R < 0 || C < 1 || n_split <= 0 || rows_per_split <= 0 ||
+      static_cast<long long>(n_split) * rows_per_split < R) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = bf16 ? launch<Bf16Pair>(g, z, relu, R, C, n_split, rows_per_split, work, du, s)
-                       : launch<F32Pair>(g, z, relu, R, C, n_split, rows_per_split, work, du, s);
+  int err;
+  if (C % 2 == 0 && C <= 2 * kThreads) {
+    err = bf16 ? launch<Bf16Pair>(g, z, relu, R, C, n_split, rows_per_split, work, du, s)
+               : launch<F32Pair>(g, z, relu, R, C, n_split, rows_per_split, work, du, s);
+  } else {
+    err = bf16 ? launch_scalar<__nv_bfloat16>(g, z, relu, R, C, n_split, rows_per_split, work,
+                                              du, s)
+               : launch_scalar<float>(g, z, relu, R, C, n_split, rows_per_split, work, du, s);
+  }
   if (err != 0) return err;
   bwd_reduce<<<(C + 255) / 256, 256, 0, s>>>(static_cast<const float*>(work), n_split, C,
                                             static_cast<float*>(dbp));

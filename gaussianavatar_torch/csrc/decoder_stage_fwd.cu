@@ -2,12 +2,13 @@
 // with a plain C interface (loaded through ctypes by
 // gaussianavatar_torch/ops/decoder_stage.py `stage_fwd`).
 //
-// z = act(x Wp + bp) for x (R, C), the BatchNorm-folded weights Wp (C, 128)
-// and bias bp (128,): the product accumulates in float32, and the bias and
-// the activation (softplus or relu) run in the product's epilogue, so the
-// pre-activation is never written. It has no Pallas counterpart: the JAX
-// package's ShapeDecoderFused (gaussianavatar_tpu/models/decoder.py:220,
-// `actv(inp.astype(cdt) @ Wp + bp)`) leaves the fusion to XLA.
+// z = act(x Wp + bp) for x (R, C), the BatchNorm-folded weights Wp (C, H)
+// and bias bp (H,), any C >= 1 and H >= 1: the product accumulates in
+// float32, and the bias and the activation (softplus or relu) run in the
+// product's epilogue, so the pre-activation is never written. It has no
+// Pallas counterpart: the JAX package's ShapeDecoderFused
+// (gaussianavatar_tpu/models/decoder.py:220, `actv(inp.astype(cdt) @ Wp +
+// bp)`) leaves the fusion to XLA.
 //
 // Rounding, as the JAX stage on the CPU and the plain version
 // (`stage_fwd_plain`): bfloat16 mode rounds the float32 sum to bfloat16,
@@ -18,30 +19,52 @@
 //
 // What bounds it on the H100: the bytes, reading x and writing z once (a
 // 128-wide bfloat16 stage at R = 445,568: 114 + 114 MB, 0.068 ms at 3.35
-// TB/s); the product's 2 R C 128 operations (14.6 GFLOP there, 0.015 ms on
-// the bfloat16 tensor cores) sit under that. The design: a block keeps Wp
-// in shared memory and walks 64-row tiles of x (grid-stride); bfloat16
-// mode multiplies on the tensor cores (WMMA 16x16x16 bfloat16, float32
-// accumulation; the decoder's first stage casts its float32 input to
-// bfloat16 as it loads); float32 mode uses FFMA (no TF32: the plain
-// version and the JAX stage are true float32). The epilogue stages the
-// accumulators in shared memory and writes z in whole rows. A simple
-// first version: no TMA, no wgmma, no overlap of a tile's loads with the
-// previous tile's products. Measured on an H100 80GB HBM3 at 700 W
-// (chip_smoke.py phase 11, 445,568 rows, 128 -> 128 bfloat16): 0.292 ms
-// against the 0.068 ms bound, where cuBLAS's unfused addmm takes 0.095.
+// TB/s); the product's 2 R C H operations (0.015 ms on the bfloat16 tensor
+// cores there) sit under that, and the epilogue's instructions come close.
+//
+// The design (decoder_common.cuh): persistent blocks of 4 warpgroups and no
+// producer warp, so a thread gets 128 registers. A block loads its slice of
+// Wp and bp into shared memory once, then its warpgroups take the 64-row
+// tiles of x in turn (tile = blockIdx.x + j gridDim.x, warpgroup j % 4). A
+// warpgroup owns 1 or 2 stages of the ring: one of its threads lands each
+// tile with one cp.async.bulk, and reissues the stage for its next tile as
+// soon as the warpgroup has read it, so the copy overlaps the epilogue.
+//  - bfloat16 mode: wgmma m64n64k16 with A in registers (each lane loads its
+//    rows' values from the landed tile, casting float32 input to bfloat16)
+//    and Wp^T from shared memory (K-major, 128-byte swizzle, written once),
+//    two 32-wide K blocks in flight. K is permuted inside each 32-wide block
+//    so that a lane's A values for two K steps are 8 consecutive values of
+//    its row (one 16-byte load where the rows allow it); Wp^T's rows take
+//    the same permutation. The epilogue runs from the accumulator registers
+//    in bfloat16x2 arithmetic (the bias add, max(u, 0) and softplus's
+//    log1p(exp(-|u|)) term from a 2,048-entry table of the same bits,
+//    below), then stores whole 8-column groups, 16 bytes a lane, after a
+//    4 x 4 transpose across each quad of lanes (a warp writes 64 contiguous
+//    bytes of 8 rows); 2-byte stores where H is not a multiple of 8.
+//  - float32 mode (--bf16_decoder 0): FFMA from the landed tile (4 columns
+//    of a row a load) and a float32 Wp in shared memory (no TF32: the plain
+//    version and the JAX stage are true float32), 8 rows x 4 NCH columns a
+//    thread.
+// Any width: K is padded with zeros to the 32-wide blocks (64 for Wp^T's
+// panels), loads past C are masked, columns past H are not stored, and the
+// vector width of the loads follows the rows' alignment (16, 8, 4 or 2
+// bytes). The output columns are cut into groups of NB = 64 NCH columns
+// (NCH 1 or 2), one group per blockIdx.y; a wider H takes more groups, each
+// reading x again (from L2 while the groups run side by side). Shared
+// memory per block: Wp's slice (NB x roundup(C, 64) bfloat16, or C x NB
+// float32), NB bias values, the 4 KB table, and the ring (consumers x 1 or 2
+// stages of 64 C esize bytes). The launcher takes NCH 2 if it leaves room
+// for 2 stages in 227 KB, then the most consuming warpgroups (4, 2, 1) and
+// stages each (2, 1) that fit. At H = 256 the skip stage (C = 322) takes
+// NCH 2 (96 KB of Wp^T) and 2 warpgroups of 1 stage (40 KB each), in two
+// column groups; its float32 form takes NCH 1 (81 KB) and one warpgroup of
+// one stage (81 KB), in four.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+#include "decoder_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kH = 128;      // output columns (the decoder's hsize)
-constexpr int kTile = 64;    // rows a block computes per tile
-constexpr int kLdW = kH + 8; // bfloat16 Wp's shared-memory row (elements)
-constexpr int kLdC = kH + 4; // the float32 accumulators' shared-memory row
+using namespace ga_dec;
 
 __device__ __forceinline__ float bf(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -51,161 +74,499 @@ __device__ __forceinline__ float bf(float v) {
 __device__ __forceinline__ float softplus_f32(float u) {
   return fmaxf(u, 0.f) + log1pf(expf(-fabsf(u)));
 }
-// the same in bfloat16, rounded after every operation (u is a bfloat16)
-__device__ __forceinline__ float softplus_bf16(float u) {
-  return bf(fmaxf(u, 0.f) + bf(log1pf(bf(expf(-fabsf(u))))));
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-// bfloat16 mode. Shared memory: Wp (Kp x kLdW bfloat16, Kp = C rounded up
-// to 16, zero rows past C), then one region that holds the x tile
-// (kTile x (Kp + 8) bfloat16) while the products run and the accumulators
-// (kTile x kLdC float32) in the epilogue.
-template <typename TX, bool RELU>
-__global__ void __launch_bounds__(kThreads)
-stage_fwd_bf16(const TX* __restrict__ x, const __nv_bfloat16* __restrict__ Wp,
-               const __nv_bfloat16* __restrict__ bp, int R, int C,
-               __nv_bfloat16* __restrict__ z) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int Kp = (C + 15) / 16 * 16;
-  const int ldx = Kp + 8;
-  __nv_bfloat16* Ws = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Xs = Ws + static_cast<size_t>(Kp) * kLdW;
-  float* Cs = reinterpret_cast<float*>(Xs);
-
-  for (int e = threadIdx.x; e < Kp * kH; e += kThreads) {
-    const int k = e / kH, n = e % kH;
-    Ws[k * kLdW + n] = k < C ? Wp[static_cast<size_t>(k) * kH + n] : __float2bfloat16_rn(0.f);
+// The 8 values x[row][c0 .. c0 + 7] of a landed row, as 4 packed bfloat16
+// pairs; zero past C. `vec` is the rows' alignment in bytes.
+__device__ __forceinline__ void load8(const __nv_bfloat16* row, int c0, int C, int vec,
+                                      uint32_t (&w)[4]) {
+  if (c0 + 8 <= C) {
+    if (vec == 16) {
+      const uint4 v = *reinterpret_cast<const uint4*>(row + c0);
+      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+      return;
+    }
+    if (vec >= 4) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) w[i] = *reinterpret_cast<const uint32_t*>(row + c0 + 2 * i);
+      return;
+    }
   }
-  // each thread writes the same two output columns in every tile
-  const int col = 2 * (threadIdx.x % (kH / 2));
-  const float2 bias = load2(bp + col);
-
-  const int warp = threadIdx.x / 32;
-  const int wr = warp % 4, wc = warp / 4;   // rows wr*16.., columns wc*64..
-  const int n_tiles = (R + kTile - 1) / kTile;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int r0 = tile * kTile;
-    const int rows = min(kTile, R - r0);
-    // the x tile as bfloat16, two columns a load (C is even), zero past C
-    // and past the last row
-    for (int e = threadIdx.x; e < kTile * (Kp / 2); e += kThreads) {
-      const int row = e / (Kp / 2), c2 = 2 * (e % (Kp / 2));
-      float2 v = make_float2(0.f, 0.f);
-      if (row < rows && c2 < C) v = load2(x + static_cast<size_t>(r0 + row) * C + c2);
-      *reinterpret_cast<__nv_bfloat162*>(Xs + row * ldx + c2) = __floats2bfloat162_rn(v.x, v.y);
-    }
-    __syncthreads();
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+  const uint16_t* r = reinterpret_cast<const uint16_t*>(row);
 #pragma unroll
-    for (int q = 0; q < 4; ++q) wmma::fill_fragment(acc[q], 0.f);
-    for (int k = 0; k < Kp; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, Xs + wr * 16 * ldx + k, ldx);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, Ws + k * kLdW + wc * 64 + q * 16, kLdW);
-        wmma::mma_sync(acc[q], a, b, acc[q]);
-      }
-    }
-    __syncthreads();   // every warp is done with Xs, which Cs overwrites
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      wmma::store_matrix_sync(Cs + wr * 16 * kLdC + wc * 64 + q * 16, acc[q], kLdC,
-                              wmma::mem_row_major);
-    __syncthreads();
-
-    for (int row = threadIdx.x / (kH / 2); row < rows; row += kThreads / (kH / 2)) {
-      float u0 = bf(bf(Cs[row * kLdC + col]) + bias.x);
-      float u1 = bf(bf(Cs[row * kLdC + col + 1]) + bias.y);
-      if (RELU) {
-        u0 = fmaxf(u0, 0.f);
-        u1 = fmaxf(u1, 0.f);
-      } else {
-        u0 = softplus_bf16(u0);
-        u1 = softplus_bf16(u1);
-      }
-      *reinterpret_cast<__nv_bfloat162*>(z + static_cast<size_t>(r0 + row) * kH + col) =
-          __floats2bfloat162_rn(u0, u1);
-    }
-    __syncthreads();   // Cs is the next tile's Xs
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t lo = c0 + 2 * i < C ? r[c0 + 2 * i] : 0u;
+    const uint32_t hi = c0 + 2 * i + 1 < C ? r[c0 + 2 * i + 1] : 0u;
+    w[i] = lo | (hi << 16);
   }
 }
 
-// float32 mode: FFMA. Shared memory: Wp (C x kH float32), then the x tile
-// (kTile x (C + 1) float32). Each thread computes 4 rows x 8 columns: two
-// runs of 4 columns, 64 apart, so a warp's float4 reads of a Wp row are
-// contiguous.
+__device__ __forceinline__ void load8(const float* row, int c0, int C, int vec,
+                                      uint32_t (&w)[4]) {
+  if (c0 + 8 <= C) {
+    if (vec == 16) {
+      const float4 a = *reinterpret_cast<const float4*>(row + c0);
+      const float4 b = *reinterpret_cast<const float4*>(row + c0 + 4);
+      w[0] = pack_bf16(a.x, a.y); w[1] = pack_bf16(a.z, a.w);
+      w[2] = pack_bf16(b.x, b.y); w[3] = pack_bf16(b.z, b.w);
+      return;
+    }
+    if (vec == 8) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 v = *reinterpret_cast<const float2*>(row + c0 + 2 * i);
+        w[i] = pack_bf16(v.x, v.y);
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float lo = c0 + 2 * i < C ? row[c0 + 2 * i] : 0.f;
+    const float hi = c0 + 2 * i + 1 < C ? row[c0 + 2 * i + 1] : 0.f;
+    w[i] = pack_bf16(lo, hi);
+  }
+}
+
+// the actual column of operand K index k (the permutation inside each
+// 32-wide block that lets a lane's A values be 8 consecutive columns):
+// step t = k / 16, fragment position p = k % 16
+__device__ __forceinline__ int actual_k(int k) {
+  const int t = k >> 4, p = k & 15;
+  return 32 * (t >> 1) + 8 * ((p & 7) >> 1) + 4 * (t & 1) + (p & 1) + 2 * (p >> 3);
+}
+
+struct Layout {
+  int consumers;        // warpgroups that take tiles (a power of two)
+  int per_wg;           // stages each of them owns (1 or 2)
+  size_t stage_bytes;   // one ring stage
+  size_t w_bytes;       // Wp's slice; the bias and the softplus table follow it
+  size_t land_off;      // where the ring starts (1024-byte aligned)
+};
+
+// a block is 4 warpgroups (128 registers a thread)
+constexpr int kWGs = 4, kThreads = 128 * kWGs;
+
+// The bfloat16 softplus of a bfloat16 u, max(u, 0) + T(|u|), takes its
+// second term from a table of T(|u|) = bf(log1p(bf(exp(-|u|)))) over the
+// bfloat16 |u| in [2^-9, 2^7) (2,048 values, 4 KB of shared memory, each
+// operation rounded as the plain version rounds it, so the bits are the
+// same as computing it in place):
+// below 2^-9 bf(exp(-|u|)) is 1 and T is T(2^-9); from 2^7 on exp(-|u|)
+// is 0 in float32 and T is 0, which the last entry (127.5) holds already.
+constexpr uint32_t kSpLo = 118u << 7;   // the bfloat16 bits of 2^-9
+constexpr int kSpTable = 2048;
+
+__device__ __forceinline__ uint16_t sp_entry(int i) {
+  const float a = __uint_as_float((kSpLo + i) << 16);
+  const __nv_bfloat16 t = __float2bfloat16_rn(log1pf(bf(expf(-a))));
+  return *reinterpret_cast<const uint16_t*>(&t);
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ __nv_bfloat162 bf2(uint32_t v) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&v);
+}
+
+// T(|u|) of one bfloat16 u given as its 16 bits
+__device__ __forceinline__ uint32_t sp_term(uint32_t ubits, const uint16_t* sp_tab) {
+  const int i = min(max(static_cast<int>(ubits & 0x7FFFu) - static_cast<int>(kSpLo), 0),
+                    kSpTable - 1);
+  return sp_tab[i];
+}
+
+// z of two bfloat16 pre-activations, in bfloat16x2 arithmetic: each add
+// rounds the exact sum of two bfloat16 values once, which is what rounding
+// their float32 sum gives, so the bits are the plain version's; the max
+// keeps a NaN (as torch.relu and softplus do)
 template <bool RELU>
-__global__ void __launch_bounds__(kThreads)
-stage_fwd_f32(const float* __restrict__ x, const float* __restrict__ Wp,
-              const float* __restrict__ bp, int R, int C, float* __restrict__ z) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Ws = reinterpret_cast<float*>(smem);
-  float* Xs = Ws + static_cast<size_t>(C) * kH;
-  const int ldx = C + 1;
-  for (int e = threadIdx.x; e < C * kH; e += kThreads) Ws[e] = Wp[e];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float bias[8];
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bias[h * 4 + j] = bp[h * 64 + tx * 4 + j];
+__device__ __forceinline__ uint32_t act_bf16x2(__nv_bfloat162 u, const uint16_t* sp_tab) {
+  const __nv_bfloat162 m = __hmax2_nan(u, __float2bfloat162_rn(0.f));
+  if (RELU) return bits(m);
+  const uint32_t ub = bits(u);
+  const uint32_t t = sp_term(ub & 0xFFFFu, sp_tab) | (sp_term(ub >> 16, sp_tab) << 16);
+  return bits(__hadd2(m, bf2(t)));
+}
 
-  const int n_tiles = (R + kTile - 1) / kTile;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int r0 = tile * kTile;
-    const int rows = min(kTile, R - r0);
-    for (int e = threadIdx.x; e < kTile * C; e += kThreads) {
-      const int row = e / C, c = e % C;
-      Xs[row * ldx + c] = row < rows ? x[static_cast<size_t>(r0) * C + e] : 0.f;
+// The 4 x 4 transpose of 32-bit words across the 4 lanes of a quad: lane q
+// gives v[k] and ends with v[p] = lane p's v[q] (two butterfly stages).
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int q) {
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    const bool hi = (q >> b) & 1;
+#pragma unroll
+    for (int k0 = 0; k0 < 4; ++k0) {
+      if (k0 & (1 << b)) continue;
+      const int k1 = k0 | (1 << b);
+      const uint32_t send = hi ? v[k0] : v[k1];
+      const uint32_t recv = __shfl_xor_sync(0xFFFFFFFFu, send, 1 << b);
+      if (hi) v[k0] = recv; else v[k1] = recv;
     }
-    __syncthreads();
-    float acc[4][8] = {};
-    for (int k = 0; k < C; ++k) {
-      float a[4];
+  }
+}
+
+// one 32-column block b of the tile's products: the A fragments of this
+// lane's rows (ra, rb) for K steps 2b and 2b + 1
+template <typename TX>
+__device__ __forceinline__ void load_a(const TX* tl, int ra, int rb, int rows, int b, int q,
+                                       int C, int vec, uint32_t (&a0)[4], uint32_t (&a1)[4]) {
+  uint32_t wa[4] = {0u, 0u, 0u, 0u}, wb[4] = {0u, 0u, 0u, 0u};
+  if (ra < rows) load8(tl + static_cast<size_t>(ra) * C, 32 * b + 8 * q, C, vec, wa);
+  if (rb < rows) load8(tl + static_cast<size_t>(rb) * C, 32 * b + 8 * q, C, vec, wb);
+  a0[0] = wa[0]; a0[1] = wb[0]; a0[2] = wa[1]; a0[3] = wb[1];
+  a1[0] = wa[2]; a1[1] = wb[2]; a1[2] = wa[3]; a1[3] = wb[3];
+}
+
+template <int NCH>
+__device__ __forceinline__ void mma_block(float (&acc)[NCH][32], const uint32_t (&a0)[4],
+                                          const uint32_t (&a1)[4], const unsigned char* Bs,
+                                          int b) {
+  constexpr int NB = 64 * NCH;
+  wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Xs[(ty * 4 + i) * ldx + k];
-      const float4 b0 = *reinterpret_cast<const float4*>(Ws + k * kH + tx * 4);
-      const float4 b1 = *reinterpret_cast<const float4*>(Ws + k * kH + 64 + tx * 4);
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
+  for (int c = 0; c < NCH; ++c) {
+    // step 2b lies in panel b / 2 at 32 (2b % 4) bytes; step 2b + 1 32 bytes on
+    const unsigned char* base = Bs + (b >> 1) * (NB * 128) + c * (64 * 128) + (b & 1) * 64;
+    wgmma_rs_64x64(acc[c], a0, desc_b128(base), 1);
+    wgmma_rs_64x64(acc[c], a1, desc_b128(base + 32), 1);
+  }
+  wgmma_commit();
+}
+
+// The tiles of warpgroup wg: local index i is tile blockIdx.x + (wg + i
+// consumers) gridDim.x, landed in its stage wg per_wg + i % per_wg.
+struct TileWalk {
+  int wg, consumers, per_wg, n_tiles;
+  __device__ int tile(int i) const {
+    return static_cast<int>(blockIdx.x) + (wg + i * consumers) * static_cast<int>(gridDim.x);
+  }
+  __device__ int stage(int i) const { return wg * per_wg + i % per_wg; }
+  __device__ uint32_t parity(int i) const { return (i / per_wg) & 1; }
+};
+
+// bfloat16 mode
+template <typename TX, int NCH, bool RELU>
+__global__ void __launch_bounds__(kThreads, 1)
+stage_fwd_bf16(const TX* __restrict__ x, const __nv_bfloat16* __restrict__ Wp,
+               const __nv_bfloat16* __restrict__ bp, int R, int C, int H, Layout L, int vec,
+               __nv_bfloat16* __restrict__ z) {
+  constexpr int NB = 64 * NCH;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* Bs = smem;                                   // Wp^T, K-major, swizzled
+  __nv_bfloat162* bias_s = reinterpret_cast<__nv_bfloat162*>(smem + L.w_bytes);   // NB / 2 pairs
+  uint16_t* sp_tab = reinterpret_cast<uint16_t*>(bias_s + NB / 2);
+  unsigned char* land = smem + L.land_off;
+  uint64_t* full = reinterpret_cast<uint64_t*>(land + L.consumers * L.per_wg * L.stage_bytes);
+  const size_t row_bytes = static_cast<size_t>(C) * sizeof(TX);
+  const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
+
+  const int n0 = blockIdx.y * NB;
+  const int Kp = (C + 63) / 64 * 64;
+  const int wg = threadIdx.x / 128, lt = threadIdx.x % 128;   // warpgroup, its thread
+  const TileWalk walk{wg, L.consumers, L.per_wg, (R + kTileRows - 1) / kTileRows};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L.consumers * L.per_wg; ++s) mbar_init(&full[s], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  // the first tiles start landing while Wp^T is staged
+  if (lt == 0 && wg < L.consumers)
+    for (int i = 0; i < L.per_wg && walk.tile(i) < walk.n_tiles; ++i)
+      land_tile(xb, row_bytes, R, walk.tile(i), land + walk.stage(i) * L.stage_bytes,
+                &full[walk.stage(i)]);
+  // Wp^T: each task writes 8 operand K values (16 bytes) of one row n
+  for (int e = threadIdx.x; e < NB * (Kp / 8); e += kThreads) {
+    const int n = e % NB, k0 = (e / NB) * 8;
+    uint32_t w[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int row = ty * 4 + i;
-      if (row >= rows) continue;
+      float v[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        float v[4];
+        const int k = actual_k(k0 + 2 * i + h);
+        v[h] = (k < C && n0 + n < H) ? __bfloat162float(Wp[static_cast<size_t>(k) * H + n0 + n])
+                                     : 0.f;
+      }
+      w[i] = pack_bf16(v[0], v[1]);
+    }
+    *reinterpret_cast<uint4*>(Bs + b128_offset(n, k0, NB)) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  for (int n = threadIdx.x; n < NB / 2; n += kThreads)
+    bias_s[n] = __halves2bfloat162(n0 + 2 * n < H ? bp[n0 + 2 * n] : __float2bfloat16_rn(0.f),
+                                   n0 + 2 * n + 1 < H ? bp[n0 + 2 * n + 1]
+                                                      : __float2bfloat16_rn(0.f));
+  if (!RELU)
+    for (int i = threadIdx.x; i < kSpTable; i += kThreads) sp_tab[i] = sp_entry(i);
+  fence_proxy_async();
+  __syncthreads();
+  if (wg >= L.consumers) return;
+
+  const int warp = lt / 32, lane = lt % 32;       // warp within the warpgroup
+  const int g = lane / 4, q = lane % 4;
+  const int n_kb = (C + 31) / 32;
+  // 16-byte stores where every 8-column group lies wholly inside H or past it
+  const bool wide = !(H & 7);
+  for (int i = 0;; ++i) {
+    const int tile = walk.tile(i);
+    if (tile >= walk.n_tiles) break;
+    const int st = walk.stage(i);
+    mbar_wait(&full[st], walk.parity(i));
+    const TX* tl = reinterpret_cast<const TX*>(land + st * L.stage_bytes);
+    const int r0 = tile * kTileRows;
+    const int rows = min(kTileRows, R - r0);
+    const int ra = 16 * warp + g, rb = ra + 8;   // this lane's two rows
+
+    float acc[NCH][32];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float u = acc[i][h * 4 + j] + bias[h * 4 + j];
-          v[j] = RELU ? fmaxf(u, 0.f) : softplus_f32(u);
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[c][e] = 0.f;
+    // two blocks in flight: block b's A registers are reloaded only after
+    // the products of block b - 2 that read them are done (wgmma reads its A
+    // registers asynchronously; fence_regs keeps them allocated till then)
+    uint32_t a0[4] = {}, a1[4] = {}, b0[4] = {}, b1[4] = {};
+    for (int b = 0; b < n_kb; b += 2) {
+      if (b > 0) {
+        wgmma_wait<1>();
+        fence_regs(a0);
+        fence_regs(a1);
+      }
+      load_a(tl, ra, rb, rows, b, q, C, vec, a0, a1);
+      mma_block<NCH>(acc, a0, a1, Bs, b);
+      if (b + 1 < n_kb) {
+        if (b > 0) {
+          wgmma_wait<1>();
+          fence_regs(b0);
+          fence_regs(b1);
         }
-        *reinterpret_cast<float4*>(z + static_cast<size_t>(r0 + row) * kH + h * 64 + tx * 4) =
-            make_float4(v[0], v[1], v[2], v[3]);
+        load_a(tl, ra, rb, rows, b + 1, q, C, vec, b0, b1);
+        mma_block<NCH>(acc, b0, b1, Bs, b + 1);
       }
     }
-    __syncthreads();   // the next tile overwrites Xs
+    // every lane's loads of the stage are done: land the warpgroup's tile
+    // after next there while the products finish and the epilogue runs
+    named_sync(1 + wg, 128);
+    if (lt == 0 && walk.tile(i + L.per_wg) < walk.n_tiles)
+      land_tile(xb, row_bytes, R, walk.tile(i + L.per_wg), land + st * L.stage_bytes, &full[st]);
+    wgmma_wait<0>();
+    fence_regs(a0);
+    fence_regs(a1);
+    fence_regs(b0);
+    fence_regs(b1);
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) fence_acc(acc[c]);
+
+    // epilogue from the accumulators: rows r0 + ra and r0 + rb
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = h ? rb : ra;
+        uint32_t w[8];   // columns 64 c + 8 jj + 2 q, + 1, as bfloat16 pairs
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const __nv_bfloat162 bias = bias_s[(64 * c + 8 * jj) / 2 + q];
+          const __nv_bfloat162 u = __hadd2(
+              __floats2bfloat162_rn(acc[c][4 * jj + 2 * h], acc[c][4 * jj + 2 * h + 1]), bias);
+          w[jj] = act_bf16x2<RELU>(u, sp_tab);
+        }
+        __nv_bfloat16* out = z + static_cast<size_t>(r0 + row) * H + n0 + 64 * c;
+        if (wide) {
+          // lane q stores the 8 columns of group 4 blk + q: 64 bytes a row
+#pragma unroll
+          for (int blk = 0; blk < 2; ++blk) {
+            uint32_t v[4] = {w[4 * blk], w[4 * blk + 1], w[4 * blk + 2], w[4 * blk + 3]};
+            quad_transpose(v, q);
+            const int col = 8 * (4 * blk + q);
+            if (row < rows && n0 + 64 * c + col < H)
+              *reinterpret_cast<uint4*>(out + col) = make_uint4(v[0], v[1], v[2], v[3]);
+          }
+        } else if (row < rows) {
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int col = 8 * jj + 2 * q;
+            const __nv_bfloat162 pr = *reinterpret_cast<const __nv_bfloat162*>(&w[jj]);
+            if (n0 + 64 * c + col < H) out[col] = pr.x;
+            if (n0 + 64 * c + col + 1 < H) out[col + 1] = pr.y;
+          }
+        }
+      }
+    }
   }
 }
 
-// One block per SM slot the shared memory leaves, at most one per tile.
+// x[row][k .. k + 3] of a landed row (zero for a row past the tile); `vec`
+// the rows' alignment in bytes
+__device__ __forceinline__ void load4(const float* p, int vec, bool valid, float (&a)[4]) {
+  if (!valid) {
+    a[0] = a[1] = a[2] = a[3] = 0.f;
+  } else if (vec == 16) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
+  } else if (vec == 8) {
+    const float2 v0 = *reinterpret_cast<const float2*>(p);
+    const float2 v1 = *reinterpret_cast<const float2*>(p + 2);
+    a[0] = v0.x; a[1] = v0.y; a[2] = v1.x; a[3] = v1.y;
+  } else {
+    a[0] = p[0]; a[1] = p[1]; a[2] = p[2]; a[3] = p[3];
+  }
+}
+
+// float32 mode: FFMA. A thread computes 8 rows (tr + 8 i) x 4 NCH columns
+// (64 c + 4 tc + e) of its warpgroup's 64-row tile.
+template <int NCH, bool RELU>
+__global__ void __launch_bounds__(kThreads, 1)
+stage_fwd_f32(const float* __restrict__ x, const float* __restrict__ Wp,
+              const float* __restrict__ bp, int R, int C, int H, Layout L, int vec,
+              float* __restrict__ z) {
+  constexpr int NB = 64 * NCH;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  float* Ws = reinterpret_cast<float*>(smem);   // (C, NB), columns n0 ..
+  float* bias_s = reinterpret_cast<float*>(smem + L.w_bytes);
+  unsigned char* land = smem + L.land_off;
+  uint64_t* full = reinterpret_cast<uint64_t*>(land + L.consumers * L.per_wg * L.stage_bytes);
+  const size_t row_bytes = static_cast<size_t>(C) * 4;
+  const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
+
+  const int n0 = blockIdx.y * NB;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const TileWalk walk{wg, L.consumers, L.per_wg, (R + kTileRows - 1) / kTileRows};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L.consumers * L.per_wg; ++s) mbar_init(&full[s], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (t == 0 && wg < L.consumers)
+    for (int i = 0; i < L.per_wg && walk.tile(i) < walk.n_tiles; ++i)
+      land_tile(xb, row_bytes, R, walk.tile(i), land + walk.stage(i) * L.stage_bytes,
+                &full[walk.stage(i)]);
+  for (int e = threadIdx.x; e < C * NB; e += kThreads) {
+    const int k = e / NB, n = e % NB;
+    Ws[e] = n0 + n < H ? Wp[static_cast<size_t>(k) * H + n0 + n] : 0.f;
+  }
+  for (int n = threadIdx.x; n < NB; n += kThreads) bias_s[n] = n0 + n < H ? bp[n0 + n] : 0.f;
+  __syncthreads();
+  if (wg >= L.consumers) return;
+
+  const int tr = t / 16, tc = t % 16;
+  const bool vec_store = !(H & 3);
+  for (int i = 0;; ++i) {
+    const int tile = walk.tile(i);
+    if (tile >= walk.n_tiles) break;
+    const int st = walk.stage(i);
+    mbar_wait(&full[st], walk.parity(i));
+    const float* tl = reinterpret_cast<const float*>(land + st * L.stage_bytes);
+    const int r0 = tile * kTileRows;
+    const int rows = min(kTileRows, R - r0);
+    float acc[8][4 * NCH];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 4 * NCH; ++c) acc[r][c] = 0.f;
+    // four columns of x a step: one load a row where the rows allow it
+    const int C4 = C & ~3;
+    for (int k = 0; k < C4; k += 4) {
+      float a4[8][4];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) load4(tl + (tr + 8 * r) * C + k, vec, tr + 8 * r < rows, a4[r]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) {
+          const float4 b = *reinterpret_cast<const float4*>(Ws + (k + kk) * NB + 64 * c + 4 * tc);
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            acc[r][4 * c + 0] = fmaf(a4[r][kk], b.x, acc[r][4 * c + 0]);
+            acc[r][4 * c + 1] = fmaf(a4[r][kk], b.y, acc[r][4 * c + 1]);
+            acc[r][4 * c + 2] = fmaf(a4[r][kk], b.z, acc[r][4 * c + 2]);
+            acc[r][4 * c + 3] = fmaf(a4[r][kk], b.w, acc[r][4 * c + 3]);
+          }
+        }
+      }
+    }
+    for (int k = C4; k < C; ++k) {
+      float a[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int row = tr + 8 * r;
+        a[r] = row < rows ? tl[row * C + k] : 0.f;
+      }
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        const float4 b = *reinterpret_cast<const float4*>(Ws + k * NB + 64 * c + 4 * tc);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          acc[r][4 * c + 0] = fmaf(a[r], b.x, acc[r][4 * c + 0]);
+          acc[r][4 * c + 1] = fmaf(a[r], b.y, acc[r][4 * c + 1]);
+          acc[r][4 * c + 2] = fmaf(a[r], b.z, acc[r][4 * c + 2]);
+          acc[r][4 * c + 3] = fmaf(a[r], b.w, acc[r][4 * c + 3]);
+        }
+      }
+    }
+    named_sync(1 + wg, 128);
+    if (t == 0 && walk.tile(i + L.per_wg) < walk.n_tiles)
+      land_tile(xb, row_bytes, R, walk.tile(i + L.per_wg), land + st * L.stage_bytes, &full[st]);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int row = tr + 8 * r;
+      if (row >= rows) continue;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        const int nl = 64 * c + 4 * tc, col = n0 + nl;
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float u = acc[r][4 * c + e] + bias_s[nl + e];
+          v[e] = RELU ? fmaxf(u, 0.f) : softplus_f32(u);
+        }
+        float* out = z + static_cast<size_t>(r0 + row) * H + col;
+        if (vec_store && col + 3 < H) {
+          *reinterpret_cast<float4*>(out) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (col + e < H) out[e] = v[e];
+        }
+      }
+    }
+  }
+}
+
+// The widest column group (NCH) whose Wp slice leaves room for 2 ring
+// stages (NCH 1 takes what fits), then the most consuming warpgroups and
+// stages each. consumers 0: nothing fits.
+Layout pick(int C, int H, int x_esize, bool bf16, int* nch) {
+  const size_t stage = round_up(static_cast<size_t>(kTileRows) * C * x_esize, 128);
+  const size_t avail = kSmemLimit - 1024 - 2 * kMaxStages * sizeof(uint64_t);
+  // NCH 2 at most: a thread's accumulators fit in 128 registers beside the
+  // rest, and a wider H takes more column groups (x read again, from L2)
+  const int want = H <= 64 ? 1 : 2;
+  for (int n = want; n >= 1; n /= 2) {
+    const size_t NB = 64 * n;
+    const size_t w = bf16 ? NB * round_up(C, 64) * 2 : NB * C * 4;
+    const size_t fixed = round_up(w + NB * sizeof(float) + kSpTable * 2, 1024);
+    const size_t fit = fixed < avail ? (avail - fixed) / stage : 0;
+    for (int cons = kWGs; cons >= 1; cons /= 2)
+      for (int per = 2; per >= 1; --per)
+        if (static_cast<size_t>(cons * per) <= fit && (cons * per >= 2 || n == 1)) {
+          *nch = n;
+          return Layout{cons, per, stage, w, fixed};
+        }
+  }
+  return Layout{0, 0, stage, 0, 0};
+}
+
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, size_t smem, int R, cudaStream_t s, Args... args) {
+int launch(Kernel kernel, const Layout& L, int R, int groups, cudaStream_t s, Args... args) {
+  const size_t smem = 1024 + L.land_off + L.consumers * L.per_wg * L.stage_bytes +
+                      2 * kMaxStages * sizeof(uint64_t);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -215,49 +576,71 @@ int launch(Kernel kernel, size_t smem, int R, cudaStream_t s, Args... args) {
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int n_tiles = (R + kTile - 1) / kTile;
-  const int grid = n_tiles < per_sm * sms ? n_tiles : per_sm * sms;
-  if (grid > 0) kernel<<<grid, kThreads, smem, s>>>(args...);
+  const int n_tiles = (R + kTileRows - 1) / kTileRows;
+  int gx = per_sm * sms / groups;
+  gx = gx < 1 ? 1 : gx;
+  gx = n_tiles < gx ? n_tiles : gx;
+  if (gx > 0) kernel<<<dim3(gx, groups), kThreads, smem, s>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
+template <int NCH>
+int launch_bf16(const void* x, int x_bf16, const void* Wp, const void* bp, int relu, int R,
+                int C, int H, const Layout& L, int groups, void* z, cudaStream_t s) {
+  const auto* w = static_cast<const __nv_bfloat16*>(Wp);
+  const auto* b = static_cast<const __nv_bfloat16*>(bp);
+  auto* out = static_cast<__nv_bfloat16*>(z);
+  const int vec = pow2_align(static_cast<size_t>(C) * (x_bf16 ? 2 : 4));
+  if (x_bf16) {
+    const auto* xx = static_cast<const __nv_bfloat16*>(x);
+    return relu ? launch(stage_fwd_bf16<__nv_bfloat16, NCH, true>, L, R, groups, s, xx, w,
+                              b, R, C, H, L, vec, out)
+                : launch(stage_fwd_bf16<__nv_bfloat16, NCH, false>, L, R, groups, s, xx, w,
+                              b, R, C, H, L, vec, out);
+  }
+  const auto* xx = static_cast<const float*>(x);
+  return relu ? launch(stage_fwd_bf16<float, NCH, true>, L, R, groups, s, xx, w, b, R, C, H,
+                            L, vec, out)
+              : launch(stage_fwd_bf16<float, NCH, false>, L, R, groups, s, xx, w, b, R, C,
+                            H, L, vec, out);
+}
 
-// x (R, C) contiguous, float32 (x_bf16 0) or bfloat16 (1), C even; Wp
-// (C, H) and bp (H,) in the compute dtype (cdt_bf16: bfloat16, else
-// float32, which needs float32 x); H must be 128. Writes z (R, H) in the
-// compute dtype.
-extern "C" int ga_decoder_stage_fwd(const void* x, int x_bf16, const void* Wp, const void* bp,
-                                    int cdt_bf16, int relu, int R, int C, int H, void* z,
-                                    void* stream) {
-  if (R < 0 || C <= 0 || C % 2 || H != kH || (!cdt_bf16 && x_bf16)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cdt_bf16) {
-    const int Kp = (C + 15) / 16 * 16;
-    const size_t xs = static_cast<size_t>(kTile) * (Kp + 8) * sizeof(__nv_bfloat16);
-    const size_t cs = static_cast<size_t>(kTile) * kLdC * sizeof(float);
-    const size_t smem = static_cast<size_t>(Kp) * kLdW * sizeof(__nv_bfloat16) +
-                        (xs > cs ? xs : cs);
-    const auto* w = static_cast<const __nv_bfloat16*>(Wp);
-    const auto* b = static_cast<const __nv_bfloat16*>(bp);
-    auto* out = static_cast<__nv_bfloat16*>(z);
-    if (x_bf16) {
-      const auto* xx = static_cast<const __nv_bfloat16*>(x);
-      return relu ? launch(stage_fwd_bf16<__nv_bfloat16, true>, smem, R, s, xx, w, b, R, C, out)
-                  : launch(stage_fwd_bf16<__nv_bfloat16, false>, smem, R, s, xx, w, b, R, C, out);
-    }
-    const auto* xx = static_cast<const float*>(x);
-    return relu ? launch(stage_fwd_bf16<float, true>, smem, R, s, xx, w, b, R, C, out)
-                : launch(stage_fwd_bf16<float, false>, smem, R, s, xx, w, b, R, C, out);
-  }
-  const size_t smem = (static_cast<size_t>(C) * kH + static_cast<size_t>(kTile) * (C + 1)) *
-                      sizeof(float);
+template <int NCH>
+int launch_f32(const void* x, const void* Wp, const void* bp, int relu, int R, int C, int H,
+               const Layout& L, int groups, void* z, cudaStream_t s) {
   const auto* xx = static_cast<const float*>(x);
   const auto* w = static_cast<const float*>(Wp);
   const auto* b = static_cast<const float*>(bp);
   auto* out = static_cast<float*>(z);
-  return relu ? launch(stage_fwd_f32<true>, smem, R, s, xx, w, b, R, C, out)
-              : launch(stage_fwd_f32<false>, smem, R, s, xx, w, b, R, C, out);
+  const int vec = pow2_align(static_cast<size_t>(C) * 4);
+  return relu ? launch(stage_fwd_f32<NCH, true>, L, R, groups, s, xx, w, b, R, C, H, L, vec,
+                            out)
+              : launch(stage_fwd_f32<NCH, false>, L, R, groups, s, xx, w, b, R, C, H, L,
+                            vec, out);
+}
+
+}  // namespace
+
+// x (R, C) contiguous and 16-byte aligned, float32 (x_bf16 0) or bfloat16
+// (1); Wp (C, H) and bp (H,) in the compute dtype (cdt_bf16: bfloat16, else
+// float32, which needs float32 x); any C >= 1, H >= 1. Writes z (R, H) in
+// the compute dtype.
+extern "C" int ga_decoder_stage_fwd(const void* x, int x_bf16, const void* Wp, const void* bp,
+                                    int cdt_bf16, int relu, int R, int C, int H, void* z,
+                                    void* stream) {
+  if (R < 0 || C <= 0 || H <= 0 || (!cdt_bf16 && x_bf16)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (R == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int nch = 1;
+  const Layout L = pick(C, H, x_bf16 ? 2 : 4, cdt_bf16 != 0, &nch);
+  if (L.consumers < 1) return static_cast<int>(cudaErrorInvalidValue);   // C too wide to stage
+  const int groups = (H + 64 * nch - 1) / (64 * nch);
+  if (cdt_bf16) {
+    return nch == 2 ? launch_bf16<2>(x, x_bf16, Wp, bp, relu, R, C, H, L, groups, z, s)
+                    : launch_bf16<1>(x, x_bf16, Wp, bp, relu, R, C, H, L, groups, z, s);
+  }
+  return nch == 2 ? launch_f32<2>(x, Wp, bp, relu, R, C, H, L, groups, z, s)
+                  : launch_f32<1>(x, Wp, bp, relu, R, C, H, L, groups, z, s);
 }

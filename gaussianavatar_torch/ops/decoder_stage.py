@@ -6,17 +6,18 @@ A stage is Dense -> BatchNorm -> activation with the BatchNorm folded into
 the Dense (the JAX package's `ShapeDecoderFused`,
 gaussianavatar_tpu/models/decoder.py:199-222). The JAX package has no
 Pallas kernel for it (XLA fuses it on the TPU); here three hand-written
-kernels keep the (R, 128) pre-activation out of device memory:
+kernels keep the (R, H) pre-activation out of device memory, at every width
+the JAX decoder takes (any input width C and hsize H):
 
   - H-dstat (`column_stats`, csrc/decoder_stats.cu): one pass over the
     stage's input x (R, C) -> the column sums (C,) and the Gram x^T x
-    (C, C), both accumulated in float32, by a deterministic two-pass
-    reduction. The batch statistics of the pre-activation follow from them
-    and the weights alone.
+    (C, C), both accumulated in float32 (only the Gram's upper triangle is
+    computed), by a deterministic two-pass reduction. The batch statistics
+    of the pre-activation follow from them and the weights alone.
   - H-dfwd (`stage_fwd`, csrc/decoder_stage_fwd.cu): z = act(x Wp + bp)
-    with the folded weights Wp (C, H) and bias bp (H,); the product
-    accumulates in float32, the bias and the activation run in its
-    epilogue, and only z is written.
+    with the folded weights Wp (C, H) and bias bp (H,), any C and H; the
+    product accumulates in float32 (wgmma in bfloat16), the bias and the
+    activation run in its epilogue, and only z is written.
   - H-dbwd (`stage_bwd`, csrc/decoder_stage_bwd.cu): du = g * act'(u)
     rebuilt from z alone (softplus: sigma(u) = 1 - exp(-z); relu: z > 0)
     and, in the same pass, the bias gradient sum_rows du in float32, by a
@@ -33,19 +34,16 @@ activation round to bfloat16 (the plain versions do the same).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
 
 ACTIVATIONS = ("softplus", "relu")
 
-# H-dfwd computes 128 output columns a block (the decoder's hsize)
-FWD_WIDTH = 128
-# H-dstat and H-dbwd split the rows into about this many blocks (132 SMs,
-# 8 blocks each), each writing its partial sums for the second pass
+# H-dbwd splits the rows into about this many blocks (132 SMs, 8 blocks
+# each), each writing its partial sums for the second pass
 _TARGET_BLOCKS = 1056
-_STATS_REGION = 64   # H-dstat's Gram region a block computes (64 x 64)
-_STATS_ROWS = 32     # rows a block takes per step
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -80,25 +78,37 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _split(R: int, blocks_per_split: int, multiple: int) -> Tuple[int, int]:
+def _split(R: int) -> Tuple[int, int]:
     """(splits, rows per split) of R rows: about _TARGET_BLOCKS blocks in
-    all, each split a multiple of `multiple` rows (at least one)."""
-    n = max(1, min(_TARGET_BLOCKS // blocks_per_split, _cdiv(R, multiple)))
-    rows = max(1, _cdiv(_cdiv(R, n), multiple)) * multiple
+    all, at least one row each."""
+    rows = max(1, _cdiv(R, max(1, min(_TARGET_BLOCKS, R))))
     return max(1, _cdiv(R, rows)), rows
 
 
-def _launch(name: str, fn_name: str, argtypes, *args):
-    """Calls the kernel library's C function; raises on a CUDA error."""
-    from gaussianavatar_torch.utils.cuda_build import LAUNCHES, load_library
+def _call(name: str, fn_name: str, argtypes, *args) -> int:
+    """Calls the kernel library's C function -> its return code."""
+    from gaussianavatar_torch.utils.cuda_build import load_library
 
     fn = getattr(load_library(name), fn_name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    rc = fn(*args)
+    return fn(*args)
+
+
+def _launch(name: str, fn_name: str, argtypes, *args):
+    """Calls the kernel library's launching C function; raises on a CUDA
+    error."""
+    from gaussianavatar_torch.utils.cuda_build import LAUNCHES
+
+    rc = _call(name, fn_name, argtypes, *args)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -119,7 +129,8 @@ def column_stats_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def column_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """As `column_stats_plain`. A CUDA tensor launches H-dstat (built from
-    csrc/decoder_stats.cu on first use) on the current stream."""
+    csrc/decoder_stats.cu on first use) on the current stream, with its
+    row splits planned for the device's SM count."""
     if x.device.type == "cpu":
         return column_stats_plain(x)
     from gaussianavatar_torch.utils.cuda_build import load_library
@@ -129,14 +140,18 @@ def column_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if x.dim() != 2:
         raise ValueError(f"column_stats: x must be (rows, columns), got {tuple(x.shape)}")
     R, C = x.shape
-    side = _cdiv(C, _STATS_REGION)
-    n_split, rows = _split(R, side * side, _STATS_ROWS)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    bf16 = int(x.dtype == torch.bfloat16)
+    n_split = ctypes.c_int()
+    if _call("decoder_stats", "ga_decoder_stats_plan", [i, i, i, i, ctypes.POINTER(i)], bf16,
+             R, C, _sm_count(x.device.index or 0), ctypes.byref(n_split)):
+        raise ValueError(f"column_stats: cannot plan {tuple(x.shape)}")
+    n_split = n_split.value
     colsum = torch.empty(C, dtype=torch.float32, device=x.device)
     gram = torch.empty((C, C), dtype=torch.float32, device=x.device)
     work = torch.empty((n_split, C * C + C), dtype=torch.float32, device=x.device)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    _launch("decoder_stats", "ga_decoder_stats", [p, i, i, i, i, i, p, p, p, p],
-            x.data_ptr(), int(x.dtype == torch.bfloat16), R, C, n_split, rows,
+    _launch("decoder_stats", "ga_decoder_stats", [p, i, i, i, i, p, p, p, p],
+            x.data_ptr(), bf16, R, C, n_split,
             work.data_ptr(), colsum.data_ptr(), gram.data_ptr(), _stream(x))
     return colsum, gram
 
@@ -163,7 +178,8 @@ def stage_fwd_plain(x: torch.Tensor, Wp: torch.Tensor, bp: torch.Tensor,
 def stage_fwd(x: torch.Tensor, Wp: torch.Tensor, bp: torch.Tensor, act: str) -> torch.Tensor:
     """As `stage_fwd_plain`. A CUDA tensor launches H-dfwd (built from
     csrc/decoder_stage_fwd.cu on first use) on the current stream: bfloat16
-    products on the tensor cores, float32 ones in FFMA (no TF32)."""
+    products on the tensor cores (wgmma), float32 ones in FFMA (no TF32);
+    any C and H."""
     if x.device.type == "cpu":
         return stage_fwd_plain(x, Wp, bp, act)
     from gaussianavatar_torch.utils.cuda_build import load_library
@@ -180,9 +196,6 @@ def stage_fwd(x: torch.Tensor, Wp: torch.Tensor, bp: torch.Tensor, act: str) -> 
                          f"{tuple(Wp.shape)}")
     R, C = x.shape
     H = Wp.shape[1]
-    if H != FWD_WIDTH or C % 2:
-        raise ValueError(f"{fn}: the kernel takes H = {FWD_WIDTH} and an even C, got H {H}, "
-                         f"C {C}")
     _check(fn, "bp", bp, (cdt,), (H,))
     z = torch.empty((R, H), dtype=cdt, device=x.device)
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -210,7 +223,8 @@ def stage_bwd_plain(g: torch.Tensor, z: torch.Tensor,
 
 def stage_bwd(g: torch.Tensor, z: torch.Tensor, act: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """As `stage_bwd_plain`. A CUDA tensor launches H-dbwd (built from
-    csrc/decoder_stage_bwd.cu on first use) on the current stream."""
+    csrc/decoder_stage_bwd.cu on first use) on the current stream; any
+    width."""
     if g.device.type == "cpu":
         return stage_bwd_plain(g, z, act)
     from gaussianavatar_torch.utils.cuda_build import load_library
@@ -223,9 +237,7 @@ def stage_bwd(g: torch.Tensor, z: torch.Tensor, act: str) -> Tuple[torch.Tensor,
     if z.dim() != 2:
         raise ValueError(f"{fn}: z must be (rows, columns), got {tuple(z.shape)}")
     R, H = z.shape
-    if H < 2 or H % 2 or H > 512 or 256 % (H // 2):
-        raise ValueError(f"{fn}: the kernel takes a power-of-two width of 2 to 512, got {H}")
-    n_split, rows = _split(R, 1, 1)
+    n_split, rows = _split(R)
     du = torch.empty_like(z)
     dbp = torch.empty(H, dtype=torch.float32, device=z.device)
     work = torch.empty((n_split, H), dtype=torch.float32, device=z.device)

@@ -89,7 +89,7 @@ def _port_step(inputs, sync=True):
                              np.zeros(J * 3, np.float32), np.zeros(4, np.float32),
                              query_res=32, pad_to=64, device="cpu")
     net = AvatarNet(pose_dim=J * 3, device="cpu", decoder_impl=inputs.get("decoder_impl", "ref"),
-                    **NET_KW[stage])
+                    **inputs.get("net_kw", NET_KW[stage]))
     net.load_state_dict(inputs["sd"])
     if stage == 2:
         for name in FROZEN:
@@ -130,9 +130,10 @@ def runs(request, tmp_path_factory):
     return make_runs(request.param, tmp_path_factory)
 
 
-def make_runs(stage, tmp_path_factory, decoder_impl="ref"):
-    """The JAX step, the port's unsharded step and the dp = 2 ranks' steps
-    of `stage` from one JAX init_state, both packages on `decoder_impl`."""
+def make_runs(stage, tmp_path_factory, decoder_impl="ref", net_kw=None, ranks=True):
+    """The JAX step, the port's unsharded step and (with `ranks`) the dp = 2
+    ranks' steps of `stage` from one JAX init_state, both packages on
+    `decoder_impl` and NET_KW[stage] updated by `net_kw`."""
     import jax
     import jax.numpy as jnp
 
@@ -156,7 +157,8 @@ def make_runs(stage, tmp_path_factory, decoder_impl="ref"):
                         np.zeros(J * 3, np.float32), np.zeros(4, np.float32),
                         query_res=32, pad_to=64)
     poses = np.stack([synthetic_pose(jm, t / N_FRAMES) for t in range(N_FRAMES)])
-    jnet = JAvatarNet(pose_dim=J * 3, pose_init=poses, decoder_impl=decoder_impl, **NET_KW[stage])
+    kw = {**NET_KW[stage], **(net_kw or {})}
+    jnet = JAvatarNet(pose_dim=J * 3, pose_init=poses, decoder_impl=decoder_impl, **kw)
     st0 = jax.jit(lambda key: init_state(jnet, ja, _TX0(), rng=key, batch_size=B))(
         jax.random.PRNGKey(7 + stage))
     st0 = st0.replace(iteration=jnp.int32(START_IT))
@@ -191,13 +193,17 @@ def make_runs(stage, tmp_path_factory, decoder_impl="ref"):
 
     inputs = {"stage": stage, "sd": sd0, "bank": torch.tensor(bank),
               "inp_bank": torch.tensor(inp) if stage == 2 else None, "batch": batch,
-              "gates": gates, "opt_cfg": OptimizationParams(), "decoder_impl": decoder_impl}
+              "gates": gates, "opt_cfg": OptimizationParams(), "decoder_impl": decoder_impl,
+              "net_kw": kw}
     work = str(tmp_path_factory.mktemp(f"dp_stage{stage}_{decoder_impl}"))
     torch.save(inputs, os.path.join(work, "inputs.pt"))
     full = _port_step(inputs)
-    mesh.spawn_ranks(_dp_rank, DP, "cpu", (work,), timeout_s=JOIN_TIMEOUT_S)
-    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
-             for r in range(DP)]
+    if ranks:
+        mesh.spawn_ranks(_dp_rank, DP, "cpu", (work,), timeout_s=JOIN_TIMEOUT_S)
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DP)]
+    else:
+        ranks = []
     return {"stage": stage, "sd0": sd0, "full": full, "ranks": ranks,
             "j_terms": {k: float(v) for k, v in j_terms.items()}, "j_grads": j_grads,
             "j_stats": j_stats}

@@ -71,6 +71,19 @@ def _pair(dtype, act, seed=0, in_size=10, hsize=16, rows=300):
     return jm, params, stats, tm, x
 
 
+def _jax_f32(act, in_size, hsize, params, stats, x, train):
+    """The JAX fused decoder's outputs at float32 on the same variables (and
+    in training, its updated running statistics as port keys)."""
+    jm = JShapeDecoderFused(hsize=hsize, compute_dtype="float32", actv_fn=act)
+    out = jm.apply({"params": params, "batch_stats": stats}, jnp.asarray(x), train=train,
+                   mutable=["batch_stats"] if train else False)
+    if not train:
+        return [np.asarray(o) for o in out]
+    new = bridge.shape_decoder_state_dict(params, jax.tree.map(np.asarray,
+                                                               out[1]["batch_stats"]))
+    return [np.asarray(o) for o in out[0]], new
+
+
 def _loss(xyz, sc, sh):
     return (xyz ** 2).sum() + sc.sum() + sh.sum()
 
@@ -81,7 +94,42 @@ def test_fused_decoder_training_matches_jax(dtype, act):
     """Training mode: the outputs, the updated running statistics, and the
     gradient of every parameter and of the input (through the batch
     statistics too) against the JAX ShapeDecoderFused."""
-    jm, params, stats, tm, x = _pair(dtype, act)
+    _check_training(dtype, act)
+
+
+# the other widths the JAX decoder takes: a wider hidden stage (hsize 96,
+# whose skip stage is in + 96 wide) and an odd input width (--c_geom odd).
+# At bfloat16 the two packages round the fold's Wp and bp and every stage's
+# output at other places, and at these widths a flipped rounding runs on
+# through the 11 BatchNorm'd stages (several ulps of the output):
+# there each output and running statistic is held within twice the JAX
+# bfloat16 decoder's own distance from the float32 decoder's (two draws of
+# the same rounding noise), plus the stated bound (one bfloat16 ulp of the
+# largest |output|; 1e-4 for the statistics). float32 holds the stated
+# bounds at every width; at the default width bfloat16 agrees bit for bit.
+OTHER_WIDTHS = [(10, 96), (9, 16), (9, 96)]
+
+
+def _bf16_bound(name, port, jax_bf16, jax_f32):
+    """The port's bfloat16 output within twice JAX bfloat16's own distance
+    from the float32 decoder's, plus one ulp of the largest |output|."""
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(jax_f32).max())) - 7)
+    bound = 2 * np.abs(jax_bf16 - jax_f32).max() + ulp
+    np.testing.assert_array_less(np.abs(port - jax_f32).max(), bound + 1e-12, err_msg=name)
+
+
+@pytest.mark.parametrize("in_size,hsize", OTHER_WIDTHS,
+                         ids=[f"in{i}-h{h}" for i, h in OTHER_WIDTHS])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_decoder_training_matches_jax_at_other_widths(dtype, in_size, hsize):
+    """As test_fused_decoder_training_matches_jax (softplus, its bounds) at
+    the other widths."""
+    _check_training(dtype, "softplus", in_size=in_size, hsize=hsize)
+
+
+def _check_training(dtype, act, in_size=10, hsize=16):
+    jm, params, stats, tm, x = _pair(dtype, act, in_size=in_size, hsize=hsize)
+    other = (in_size, hsize) != (10, 16)
 
     def j_fn(p, xx):
         outs, mut = jm.apply({"params": p, "batch_stats": stats}, xx, train=True,
@@ -95,17 +143,27 @@ def test_fused_decoder_training_matches_jax(dtype, act):
     _loss(*outs_t).backward()
 
     f32 = dtype == "float32"
-    for name, a, b in zip(("xyz", "scales", "shs"), outs_t, outs_j):
+    outs_f, stats_f = _jax_f32(act, in_size, hsize, params, stats, x, True) \
+        if other and not f32 else (None, None)
+    for i, (name, a, b) in enumerate(zip(("xyz", "scales", "shs"), outs_t, outs_j)):
         b = np.asarray(b)
         assert a.dtype == torch.float32
+        if outs_f is not None:
+            _bf16_bound(name, _np(a), b, outs_f[i])
+            continue
         atol = 1e-5 * max(1.0, np.abs(b).max()) if f32 else BF16_ATOL
         np.testing.assert_allclose(_np(a), b, rtol=0, atol=atol, err_msg=name)
     new_stats = bridge.shape_decoder_state_dict(params, jax.tree.map(np.asarray,
                                                                      mut_j["batch_stats"]))
     for k, v in tm.state_dict().items():
-        if "running" in k:
+        if "running" in k and stats_f is not None:
+            # as the outputs: within twice JAX bfloat16's distance from float32
+            far = float((new_stats[k] - stats_f[k]).abs().max())
+            assert float((v - stats_f[k]).abs().max()) <= 2 * far + 1e-4, k
+        elif "running" in k:
             np.testing.assert_allclose(v.numpy(), new_stats[k].numpy(), rtol=0,
                                        atol=1e-5 if f32 else 1e-4, err_msg=k)
+        if "running" in k:
             assert not np.allclose(v.numpy(), bridge.shape_decoder_state_dict(
                 params, stats)[k].numpy()), k  # they moved
 
@@ -136,12 +194,28 @@ def test_fused_decoder_training_matches_jax(dtype, act):
 def test_fused_decoder_eval_matches_jax(dtype, atol):
     """Eval mode: the running statistics fold into the stages; the
     outputs against the JAX ShapeDecoderFused at train=False."""
-    jm, params, stats, tm, x = _pair(dtype, "softplus", seed=5)
+    _check_eval(dtype, atol)
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-5), ("bfloat16", BF16_ATOL)])
+def test_fused_decoder_eval_matches_jax_at_other_widths(dtype, atol):
+    """As test_fused_decoder_eval_matches_jax at an odd input width and
+    hsize 96."""
+    _check_eval(dtype, atol, in_size=9, hsize=96)
+
+
+def _check_eval(dtype, atol, in_size=10, hsize=16):
+    jm, params, stats, tm, x = _pair(dtype, "softplus", seed=5, in_size=in_size, hsize=hsize)
     outs_j = jm.apply({"params": params, "batch_stats": stats}, jnp.asarray(x), train=False)
     with torch.no_grad():
         outs_t = tm.eval()(torch.tensor(x))
-    for name, a, b in zip(("xyz", "scales", "shs"), outs_t, outs_j):
+    outs_f = _jax_f32("softplus", in_size, hsize, params, stats, x, False) \
+        if (in_size, hsize) != (10, 16) and dtype == "bfloat16" else None
+    for i, (name, a, b) in enumerate(zip(("xyz", "scales", "shs"), outs_t, outs_j)):
         b = np.asarray(b)
+        if outs_f is not None:
+            _bf16_bound(name, _np(a), b, outs_f[i])
+            continue
         tol = atol * max(1.0, np.abs(b).max()) if dtype == "float32" else atol
         np.testing.assert_allclose(_np(a), b, rtol=0, atol=tol, err_msg=name)
 
@@ -270,6 +344,18 @@ def test_fused_train_step_matches_jax(fused_runs):
     step with fused_decoder=1 (frame_dp's bounds: terms 1e-5 relative,
     gradients 2e-4 of each parameter's largest, the zero-gradient biases
     2e-6 of the net's scale)."""
+    _check_step(fused_runs)
+
+
+def test_fused_train_step_matches_jax_at_other_widths(tmp_path_factory):
+    """As test_fused_train_step_matches_jax (stage 1, unsharded) at
+    `--hsize 96 --c_geom 7`: an odd first stage (7 + 2 uv = 9 wide), 96-wide
+    hidden stages and a 105-wide skip stage."""
+    _check_step(frame_dp.make_runs(1, tmp_path_factory, decoder_impl="fused",
+                                   net_kw=dict(hsize=96, c_geom=7), ranks=False))
+
+
+def _check_step(fused_runs):
     _, terms, grads = fused_runs["full"]
     for k, v in fused_runs["j_terms"].items():
         np.testing.assert_allclose(terms[k], v, rtol=1e-5, atol=1e-9, err_msg=k)

@@ -482,18 +482,28 @@ def _ulp(t):
     return torch.exp2(torch.floor(torch.log2(a)) - (7 if t.dtype == torch.bfloat16 else 23))
 
 
-def _decoder_stage_inputs(device, C, x_dtype, cdt, R):
+def _decoder_stage_inputs(device, C, x_dtype, cdt, R, H=128):
     """A stage's input (positive, as an activation, except the float32
     first stage's), folded weights, bias and an output cotangent."""
-    g = torch.Generator().manual_seed(C + R)
+    g = torch.Generator().manual_seed(C + R + (0 if H == 128 else 1000 * H))
     x = torch.randn(R, C, generator=g)
     if x_dtype == torch.bfloat16:
         x = torch.nn.functional.softplus(x)
-    Wp = torch.randn(C, 128, generator=g) / C ** 0.5
-    bp = 0.1 * torch.randn(128, generator=g)
-    cot = 1e-2 * torch.randn(R, 128, generator=g)
+    Wp = torch.randn(C, H, generator=g) / C ** 0.5
+    bp = 0.1 * torch.randn(H, generator=g)
+    cot = 1e-2 * torch.randn(R, H, generator=g)
     return (x.to(x_dtype).to(device), Wp.to(cdt).to(device), bp.to(cdt).to(device),
             cot.to(cdt).to(device))
+
+
+# the other widths the JAX decoder takes (--hsize H: inputs 66, H, 66 + H;
+# an odd --c_geom: 65 and 193 at H = 128; a 600-wide input, whose H-dstat
+# keeps one x^T buffer and H-dfwd one stage): (C, x dtype, compute dtype, H)
+_F32, _BF16 = torch.float32, torch.bfloat16
+DECODER_WIDTHS = [(66, _F32, _BF16, 96), (96, _BF16, _BF16, 96), (162, _BF16, _BF16, 96),
+                  (64, _BF16, _BF16, 64), (256, _BF16, _BF16, 256), (322, _BF16, _BF16, 256),
+                  (65, _F32, _BF16, 128), (193, _BF16, _BF16, 128), (66, _F32, _F32, 96),
+                  (322, _F32, _F32, 256), (97, _BF16, _BF16, 97), (600, _BF16, _BF16, 72)]
 
 
 @pytest.mark.gpu
@@ -512,10 +522,25 @@ def test_decoder_kernels_match_plain_on_card(cuda_device, C, x_dtype, cdt, act):
     a rounding), float32 within 1e-5 of it. H-dbwd: du within one ulp of
     each element, the bias gradient within 1e-5 of the largest column's
     sum of |du|, two runs bit-identical. One launch each per call."""
+    _hold_decoder_kernels(*_decoder_stage_inputs(cuda_device, C, x_dtype, cdt, 5003), act)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["softplus", "relu"])
+@pytest.mark.parametrize("C,x_dtype,cdt,H", DECODER_WIDTHS,
+                         ids=[f"{c}-{str(d)[6:]}-h{h}" for c, _, d, h in DECODER_WIDTHS])
+def test_decoder_kernels_match_plain_on_card_at_other_widths(cuda_device, C, x_dtype, cdt, H,
+                                                             act):
+    """As test_decoder_kernels_match_plain_on_card (its bounds, 5,003 rows)
+    at the other widths the JAX decoder takes (F15)."""
+    _hold_decoder_kernels(*_decoder_stage_inputs(cuda_device, C, x_dtype, cdt, 5003, H), act)
+
+
+def _hold_decoder_kernels(x, Wp, bp, cot, act):
     from gaussianavatar_torch.ops import decoder_stage as ds
     from gaussianavatar_torch.utils import cuda_build
 
-    x, Wp, bp, cot = _decoder_stage_inputs(cuda_device, C, x_dtype, cdt, 5003)
+    cdt, H = Wp.dtype, Wp.shape[1]
     before = dict(cuda_build.LAUNCHES)
     s1, g1 = ds.column_stats(x)
     s2, g2 = ds.column_stats(x)
@@ -526,7 +551,7 @@ def test_decoder_kernels_match_plain_on_card(cuda_device, C, x_dtype, cdt, act):
 
     z = ds.stage_fwd(x, Wp, bp, act)
     zp = ds.stage_fwd_plain(x, Wp, bp, act)
-    assert z.dtype == cdt and z.shape == (x.shape[0], 128)
+    assert z.dtype == cdt and z.shape == (x.shape[0], H)
     tol = float(_ulp(zp.abs().max())) if cdt == torch.bfloat16 else \
         1e-5 * float(zp.abs().max())
     assert float((z.float() - zp.float()).abs().max()) <= tol
@@ -545,8 +570,10 @@ def test_decoder_kernels_match_plain_on_card(cuda_device, C, x_dtype, cdt, act):
 
 @pytest.mark.gpu
 def test_decoder_kernel_rules_on_card(cuda_device):
-    """The decoder kernels refuse CPU tensors, wrong types, shapes, widths
-    and unaligned tensors instead of running."""
+    """The decoder kernels refuse CPU tensors, wrong types, shapes and
+    unaligned tensors instead of running; the widths 128 does not cover
+    (an output slice of 64, an odd input of 127, a gradient of 96) run and
+    match their plain versions one for one."""
     from gaussianavatar_torch.ops import decoder_stage as ds
     from gaussianavatar_torch.utils import cuda_build
 
@@ -556,13 +583,24 @@ def test_decoder_kernel_rules_on_card(cuda_device):
     bad = [lambda: ds.column_stats(x.half()),
            lambda: ds.column_stats(shifted),
            lambda: ds.stage_fwd(x, Wp.float(), bp.float(), "softplus"),   # bf16 x, f32 mode
-           lambda: ds.stage_fwd(x, Wp[:, :64].contiguous(), bp[:64], "softplus"),
-           lambda: ds.stage_fwd(x[:, :127], Wp[:127], bp, "softplus"),
            lambda: ds.stage_fwd(x, Wp, bp, "gelu"),
            lambda: ds.stage_bwd(cot, cot.float(), "softplus"),
-           lambda: ds.stage_bwd(cot[:, :96].contiguous(), cot[:, :96].contiguous(), "relu"),
            lambda: ds.stage_bwd(cot, cot.cpu(), "relu")]
     for call in bad:
         with pytest.raises(ValueError):
             call()
     assert cuda_build.launches_since(before) == {k: 0 for k in cuda_build.LAUNCHES}
+
+    # the widths H-dfwd and H-dbwd refused before F15's repair
+    W64, x127, c96 = Wp[:, :64].contiguous(), x[:, :127].contiguous(), cot[:, :96].contiguous()
+    for z, zp in ((ds.stage_fwd(x, W64, bp[:64], "softplus"),
+                   ds.stage_fwd_plain(x, W64, bp[:64], "softplus")),
+                  (ds.stage_fwd(x127, Wp[:127], bp, "softplus"),
+                   ds.stage_fwd_plain(x127, Wp[:127], bp, "softplus"))):
+        assert float((z.float() - zp.float()).abs().max()) <= float(_ulp(zp.abs().max()))
+    du, db = ds.stage_bwd(c96, c96, "relu")
+    dup, dbp = ds.stage_bwd_plain(c96, c96, "relu")
+    assert bool(((du.float() - dup.float()).abs() <= _ulp(dup)).all())
+    assert float((db - dbp).abs().max()) <= 1e-5 * float(dup.float().abs().sum(0).max())
+    assert cuda_build.launches_since(before) == {
+        **{k: 0 for k in cuda_build.LAUNCHES}, "decoder_stage_fwd": 2, "decoder_stage_bwd": 1}
