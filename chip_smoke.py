@@ -89,7 +89,8 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      BatchNorm sync shows: the first step's loss and stage 1's 10-step
      trajectory (at the f32 decoder) within the limits by TOL_DP_FIRST,
      each exceeded by a control run whose ranks break one piece of the
-     step (RANK_FAULTS);
+     step (RANK_FAULTS); in stage 2 the control is read on the saved
+     BatchNorm running statistics (TOL_DP_BN);
      rank 0's last H-fwd and H-bwd inputs in each sound run held against
      the plain versions; the ranks' launches summed from metrics.jsonl,
      exact. Two ranks that share one card measure what the sharing
@@ -114,13 +115,36 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      decoder, each reading
      within a limit that a control (one BatchNorm's running variance x
      1.5) exceeds; (d) `--dp 2` against `--dp 1` in stage 2 at the float32
-     fused decoder, against ranks whose decoder skips its statistics
+     fused decoder, its first step's loss and its saved BatchNorm running
+     statistics, against ranks whose decoder skips its statistics
      all-reduce; (e) train_multi, render_novel_view and export_avatar_ply
-     through the fused decoder.
+     through the fused decoder;
+ 12. `--steps_per_dispatch` (engine/train_step.make_train_steps) on the
+     campaign's data layout (48 frames of 512^2 from the port's writer, 24
+     batches an epoch), each run through the training CLI at 8 steps a
+     dispatch (a CUDA graph of 8 steps captured after the first group ran
+     eagerly, then replayed) and at 1, from one seed, beside a control
+     whose replay keeps one group's static batch buffers stale: (a) stage
+     1 at the canonical widths, 48 steps (6 groups), with the reference
+     and the fused decoder (a second S=1 run prints the atomics' spread),
+     the graph-replayed batch's H-fwd and H-bwd held against their plain
+     versions, and H-bwd with the scatter over the whole slot table (what
+     the graph needs) against the binned prefix, timed, peak memory;
+     (b) stage 2 on (a)'s save, 24 steps; (c) LPIPS (random weights of the
+     exact layout) joining at epoch 2 with AIAP on: the gate flips and a
+     second graph is captured; (d) (a)-(c) again under torch's
+     deterministic algorithms, where S=8 and S=1 give every step's loss and
+     the whole final state bit for bit and each control does not. (a) and
+     (b) hold the loss over the first two groups within limits their
+     controls exceed (the atomics of `index_add_` part even two S=1 runs);
+     launches exact (once a step, the fused decoder 9 / 11 / 11 per
+     training decode), the graphs captured and replayed counted; it/s over
+     groups 3-6, capture seconds, peak memory.
 It prints one JSON line of per-kernel numbers, then, last,
 {"ok": true, "device": {...}}. It needs CUDA and the repository around it.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -650,7 +674,8 @@ def phase_rest_of_path(card, work):
           f"{first['w_rgl']:g}) after step {last['step']} (loss {last['total']:.5f}); "
           f"iteration_10 holds iteration {end['iteration']}, net count "
           f"{end['optimizer']['net']['count']}")
-    if first["step"] != TRAIN_STEPS + 1 or end["iteration"] != TRAIN_STEPS + resumed_steps \
+    # the first group of the resumed run ends with epoch 9, 4 steps on
+    if first["step"] != TRAIN_STEPS + 4 or end["iteration"] != TRAIN_STEPS + resumed_steps \
             or end["optimizer"]["net"]["count"] != TRAIN_STEPS + resumed_steps:
         _fail("the resumed run did not go on from the restored iteration and counts")
     if not all(math.isfinite(r["total"]) for r in after) \
@@ -681,22 +706,27 @@ def phase_rest_of_path(card, work):
 
 
 class _KernelRecorder:
-    """While active, the blend wrappers keep their last call's inputs (they
-    launch as before)."""
+    """While active, the blend wrappers keep their last call's inputs,
+    detached (they launch as before; a kept autograd graph would keep its
+    AccumulateGrad nodes, and their streams, alive into the next step)."""
 
     def __enter__(self):
+        import torch
+
         from gaussianavatar_torch.ops import rasterize_tile
 
         self.mod = rasterize_tile
         self.real_fwd, self.real_bwd = rasterize_tile.blend_tiles, rasterize_tile.blend_tiles_bwd
         self.rec = {}
 
+        detach = lambda a: tuple(x.detach() if torch.is_tensor(x) else x for x in a)
+
         def fwd(*a, **kw):
-            self.rec["fwd_args"], self.rec["fwd_kw"] = a, kw
+            self.rec["fwd_args"], self.rec["fwd_kw"] = detach(a), kw
             return self.real_fwd(*a, **kw)
 
         def bwd(*a, **kw):
-            self.rec["args"], self.rec["kw"] = a, kw
+            self.rec["args"], self.rec["kw"] = detach(a), kw
             return self.real_bwd(*a, **kw)
 
         rasterize_tile.blend_tiles, rasterize_tile.blend_tiles_bwd = fwd, bwd
@@ -767,10 +797,24 @@ def _hold_train_batch(rec, card, label, timed=True):
 
 
 def _train_rate(out, last):
-    """Steady it/s between the logged steps 10 and `last` (metrics.jsonl)."""
+    """Steady it/s between the first logged step from 10 on and `last`
+    (metrics.jsonl; the loop logs as the JAX loop does at 8 steps a
+    dispatch: on 4-batch epochs after steps 4, 8, 12, 16, 20, 24 and 30)
+    -> (logged steps, it/s, the first step of the span)."""
     records = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
     steps = {r["step"]: r for r in records if "step" in r}
-    return steps, (last - 10) / (steps[last]["t"] - steps[10]["t"])
+    s0 = min(s for s in steps if s >= 10)
+    return steps, (last - s0) / (steps[last]["t"] - steps[s0]["t"]), s0
+
+
+def _dumps(steps, per_epoch=4, spd=8, log_iter=2000):
+    """The debug dumps (one eval-mode decode each) of a `steps`-step run
+    from the start, on `per_epoch` batches an epoch with fewer than `spd`
+    (8) of them: every group ends at an epoch's end or at `steps`, and the
+    JAX loop's rule dumps after a group whose end minus one lies within
+    `spd` past a multiple of `log_iter`."""
+    ends = sorted(set(range(per_epoch, steps, per_epoch)) | {steps})
+    return sum((e - 1) % log_iter < spd for e in ends)
 
 
 def phase_train(device, card, work):
@@ -804,10 +848,10 @@ def phase_train(device, card, work):
         if counts[name] != TRAIN_STEPS:
             _fail(f"the training run launched {name} {counts[name]} times, not once per step")
 
-    steps, rate = _train_rate(out, TRAIN_STEPS)
-    first, last = steps[1]["total"], steps[TRAIN_STEPS]["total"]
-    print(f"  training: {rate:.2f} it/s steady state (steps 10-{TRAIN_STEPS}), loss "
-          f"{first:.5f} at step 1 -> {last:.5f} at step {TRAIN_STEPS}, peak memory "
+    steps, rate, s0 = _train_rate(out, TRAIN_STEPS)
+    first, last = steps[min(steps)]["total"], steps[TRAIN_STEPS]["total"]
+    print(f"  training: {rate:.2f} it/s steady state (steps {s0}-{TRAIN_STEPS}), loss "
+          f"{first:.5f} at step {min(steps)} -> {last:.5f} at step {TRAIN_STEPS}, peak memory "
           f"{peak_gb:.2f} GiB, raster overflow {steps[TRAIN_STEPS]['raster_overflow']:.0f} "
           f"pairs, {wall:.1f} s in all (setup included), on {card}")
     if not all(math.isfinite(r["total"]) for r in steps.values()) or not last < first:
@@ -864,10 +908,11 @@ def phase_stage2(device, card, work):
     for name in TRAIN_KERNELS:
         if counts[name] != TRAIN_STEPS:
             _fail(f"the stage-2 run launched {name} {counts[name]} times, not once per step")
-    steps, rate = _train_rate(out, TRAIN_STEPS)
+    steps, rate, s0 = _train_rate(out, TRAIN_STEPS)
     last = steps[TRAIN_STEPS]
-    print(f"  stage-2 training: {rate:.2f} it/s steady state (steps 10-{TRAIN_STEPS}), loss "
-          f"{steps[1]['total']:.5f} at step 1 -> {last['total']:.5f} at step {TRAIN_STEPS}, "
+    print(f"  stage-2 training: {rate:.2f} it/s steady state (steps {s0}-{TRAIN_STEPS}), loss "
+          f"{steps[min(steps)]['total']:.5f} at step {min(steps)} -> {last['total']:.5f} at step "
+          f"{TRAIN_STEPS}, "
           f"pose_loss {last['pose']:.6f}, peak memory {peak_gb:.2f} GiB, raster overflow "
           f"{last['raster_overflow']:.0f} pairs, {wall:.1f} s in all (setup included), on {card}")
     if not all(math.isfinite(r["total"]) and math.isfinite(r["pose"]) for r in steps.values()) \
@@ -1015,17 +1060,18 @@ def phase_pipeline(device, card, work, train_stats):
             _fail(f"the LPIPS run launched {name} {counts[name]} times, not once per step")
     records = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
     events = {r["event"]: r["value"] for r in records if "event" in r}
-    steps, rate = _train_rate(out, TRAIN_STEPS)
+    steps, rate, s0 = _train_rate(out, TRAIN_STEPS)
     if events.get("lpips") != "active":
         _fail(f"the LPIPS run's lpips event is {events.get('lpips')!r}, not 'active'")
     if not all("vgg" in r and math.isfinite(r["vgg"]) and math.isfinite(r["total"])
                for r in steps.values()):
         _fail("the LPIPS run logged a step without a finite vgg term")
     last = steps[TRAIN_STEPS]
-    print(f"  LPIPS training: {rate:.2f} it/s steady (steps 10-{TRAIN_STEPS}; phase 5 "
+    print(f"  LPIPS training: {rate:.2f} it/s steady (steps {s0}-{TRAIN_STEPS}; phase 5 "
           f"{train_stats['rate']:.2f}), peak memory {peak_gb:.2f} GiB (phase 5 "
-          f"{train_stats['peak_gb']:.2f}), loss {steps[1]['total']:.5f} at step 1 -> "
-          f"{last['total']:.5f} at step {TRAIN_STEPS}, vgg {steps[1]['vgg']:.5f} -> "
+          f"{train_stats['peak_gb']:.2f}), loss {steps[min(steps)]['total']:.5f} at step "
+          f"{min(steps)} -> {last['total']:.5f} at step {TRAIN_STEPS}, vgg "
+          f"{steps[min(steps)]['vgg']:.5f} -> "
           f"{last['vgg']:.5f}, {wall:.1f} s in all (setup included), on {card}")
     fwd_err, bwd_err, _ = _hold_train_batch(recorder.rec, card, "LPIPS train batch")
     _lpips_on_card_vs_cpu(proj, data, card)
@@ -1266,7 +1312,7 @@ def phase_train_terms(device, card, work, train_stats):
         if counts[name] != TRAIN_STEPS:
             _fail(f"the AIAP run launched {name} {counts[name]} times, not once per step")
     add(counts)
-    steps, rate = _train_rate(out, TRAIN_STEPS)
+    steps, rate, s0 = _train_rate(out, TRAIN_STEPS)
     if not all("aiap" in r and math.isfinite(r["aiap"]) and math.isfinite(r["total"])
                for r in steps.values()):
         _fail("the AIAP run logged a step without a finite aiap term")
@@ -1274,10 +1320,11 @@ def phase_train_terms(device, card, work, train_stats):
     sd = torch.load(os.path.join(ckpt.ckpt_dir(out, ckpt.latest_epoch(out)), ckpt.CKPT_NAME),
                     weights_only=True)
     width = sd["pop.decoder.dense.0.weight"].shape[1]
-    print(f"  AIAP + positional encoding: {rate:.2f} it/s steady (steps 10-{TRAIN_STEPS}; "
+    first = steps[min(steps)]
+    print(f"  AIAP + positional encoding: {rate:.2f} it/s steady (steps {s0}-{TRAIN_STEPS}; "
           f"phase 5 {train_stats['rate']:.2f}), peak memory {peak_gb:.2f} GiB (phase 5 "
-          f"{train_stats['peak_gb']:.2f}), loss {steps[1]['total']:.5f} -> {last['total']:.5f}, "
-          f"aiap {steps[1]['aiap']:.3e} -> {last['aiap']:.3e}, decoder input width {width}, "
+          f"{train_stats['peak_gb']:.2f}), loss {first['total']:.5f} -> {last['total']:.5f}, "
+          f"aiap {first['aiap']:.3e} -> {last['aiap']:.3e}, decoder input width {width}, "
           f"{wall:.1f} s in all (setup included), on {card}")
     if width != 64 + 2 * 2 * 6:
         _fail(f"the decoder takes {width} inputs, not 88")
@@ -1402,6 +1449,22 @@ TOL_DP_FIRST = 2e-6
 TOL_DP_FIRST_S2 = 1e-5
 TOL_DP_FIRST_BF16 = 1e-2
 TOL_DP_TRAJ = 3e-2
+# Stage 2's BatchNorm sync at the f32 decoder, read where it acts: every
+# BatchNorm running statistic that rank 0 saves after one step against the
+# --dp 1 run's (_bn_apart). A rank that keeps its own share's statistics
+# moves them by a tenth (momentum 0.9) of its share's distance from the
+# global batch's. The first step's loss moves with them only as far as
+# the frames' errors happen to cancel: ranks whose fused decoder skips its
+# all-reduce read from 7.07e-6 to 6.9e-4 over runs from one seed (the
+# stage-1 save they start from differs by the atomics of index_add_), so
+# beside the loss's own limit that control is printed only. After one
+# step, sound runs read about 4e-7 and the controls 2.1e-3 (fused decoder)
+# and 0.107 (every BatchNorm) in each of three stage-1 saves
+# (scripts/torch_dp_bn_probe.py). One step, not three: from the second
+# step on, the biases before a BatchNorm take Adam's +-lr steps on
+# rounding noise, and a sound run's statistics read up to 4.6e-3 after
+# three.
+TOL_DP_BN = 1e-4
 
 
 def _metrics(out):
@@ -1546,13 +1609,34 @@ def _dp_run(label, argv_for, out, dp, n_steps, fault=None):
         _fail(f"{what}: the logged launches {summed} are not the counted {counts}")
     if len(run["totals"]) != n_steps or not all(map(math.isfinite, run["totals"])):
         _fail(f"{what}: {len(run['totals'])} step losses recorded, or not finite")
-    return {**run, "launches": summed, "steps": steps, "wall": wall}
+    return {**run, "launches": summed, "steps": steps, "wall": wall, "out": out}
 
 
 def _apart(a, b, steps=None):
     """The largest relative difference of run b's step losses from run a's
     (over the first `steps`, or all)."""
     return max(abs(y - x) / abs(x) for x, y in list(zip(a["totals"], b["totals"]))[:steps])
+
+
+def _bn_apart(a, b):
+    """The largest difference of a BatchNorm running statistic in run b's
+    newest save from run a's, relative to that buffer's largest entry in
+    a, over every such buffer."""
+    import torch
+
+    from gaussianavatar_torch.engine import checkpoint as ckpt
+
+    def load(run):
+        out = run["out"]
+        path = os.path.join(ckpt.ckpt_dir(out, ckpt.latest_epoch(out)), ckpt.CKPT_NAME)
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+    sa, sb = load(a), load(b)
+    keys = [k for k in sa if k.endswith(("running_mean", "running_var"))]
+    if not keys:
+        _fail(f"{a['out']}: the save holds no BatchNorm running statistics")
+    return max(float((sb[k].double() - sa[k].double()).abs().max()
+                     / sa[k].double().abs().max().clamp_min(1e-30)) for k in keys)
 
 
 def phase_scale_out(device, card, work, train_stats):
@@ -1685,8 +1769,13 @@ def phase_scale_out(device, card, work, train_stats):
           f"(printed only) --dp 2 {_apart(dp1, dp2):.2e}")
     checks += [("stage 1 first step", first, TOL_DP_FIRST),
                (f"stage 1 (f32 decoder) steps 1-{DP_STEPS}", traj, TOL_DP_TRAJ)]
-    rate = lambda r: (DP_STEPS - 1) / (r["steps"][DP_STEPS]["t"] - r["steps"][1]["t"])
-    print(f"  stage 1, steps 1-{DP_STEPS}: {rate(dp1):.2f} it/s (--dp 1) vs {rate(dp2):.2f} "
+    # between the first logged step (the end of the first 4-batch epoch)
+    # and the last
+    first_logged = min(dp1["steps"])
+    rate = lambda r: ((DP_STEPS - first_logged)
+                      / (r["steps"][DP_STEPS]["t"] - r["steps"][first_logged]["t"]))
+    print(f"  stage 1, steps {first_logged + 1}-{DP_STEPS}: {rate(dp1):.2f} it/s (--dp 1) vs "
+          f"{rate(dp2):.2f} "
           f"global it/s (--dp 2, two ranks sharing the card: the cost of sharing, no "
           f"scaling), on {card}")
 
@@ -1706,10 +1795,21 @@ def phase_scale_out(device, card, work, train_stats):
         first = (_apart(r1, r2, 1), _apart(r1, no_bn, 1))
         print(f"  {label}, step 1 vs --dp 1: --dp 2 {first[0]:.2e}, ranks with their own "
               f"share's BatchNorm statistics {first[1]:.2e} (limit {tol:g}"
-              + ("" if separates else ", a sanity bound") + f"); steps 1-{DP2_STEPS} "
-              f"{_apart(r1, r2):.2e}; {DP2_STEPS} steps in {r1['wall']:.1f} s (--dp 1) and "
-              f"{r2['wall']:.1f} s (--dp 2, set-up and the spawn included)")
-        checks.append((f"{label} first step", first if separates else (first[0], None), tol))
+              + (", that control printed only" if separates else ", a sanity bound")
+              + f"); steps 1-{DP2_STEPS} {_apart(r1, r2):.2e}; {DP2_STEPS} steps in "
+              f"{r1['wall']:.1f} s (--dp 1) and {r2['wall']:.1f} s (--dp 2, set-up and the "
+              "spawn included)")
+        checks.append((f"{label} first step", (first[0], None), tol))
+        if separates:
+            # the statistics after the control's one step, beside one-step runs
+            one = [run(label, argv, f"s2_{dtype}_dp{dp}_one_step", dp, 1) for dp in (1, 2)]
+            for r in one:
+                add(r["launches"])
+            stats = (_bn_apart(one[0], one[1]), _bn_apart(one[0], no_bn))
+            print(f"  {label}, BatchNorm running statistics after one step vs --dp 1: --dp 2 "
+                  f"{stats[0]:.2e}, ranks with their own share's {stats[1]:.2e} (limit "
+                  f"{TOL_DP_BN:g})")
+            checks.append((f"{label} BatchNorm running statistics", stats, TOL_DP_BN))
 
     # rank 0's last H-fwd and H-bwd inputs against the plain versions
     for label, r in holds:
@@ -1966,8 +2066,11 @@ def _decoder_random_holds(device, card):
 
 
 class _DecoderRecorder:
-    """While active, the decoder kernels' wrappers keep their last call's
-    inputs for each wrapper, width and dtype (they launch as before)."""
+    """While active, the decoder kernels' wrappers keep their last training
+    call's inputs for each wrapper, width and dtype (H-dfwd's with autograd
+    on; they launch as before). The debug dump's eval-mode decode, which the JAX
+    loop's cadence puts after a run's last group, is not what the holds of
+    "the last step" read."""
 
     NAMES = ("column_stats", "stage_fwd", "stage_bwd")
 
@@ -1984,8 +2087,10 @@ class _DecoderRecorder:
             real = self.real[name]
 
             def call(*a):
-                self.rec[(name, a[0].shape[1], a[0].dtype)] = tuple(
-                    v.detach() if torch.is_tensor(v) else v for v in a)
+                # H-dbwd runs inside a backward, where autograd is off
+                if name != "stage_fwd" or torch.is_grad_enabled():
+                    self.rec[(name, a[0].shape[1], a[0].dtype)] = tuple(
+                        v.detach() if torch.is_tensor(v) else v for v in a)
                 return real(*a)
             return call
 
@@ -2037,18 +2142,18 @@ def _fused_train(label, argv, out, steps, card, train_stats=None):
     with _DecoderRecorder() as drec:
         _, counts, wall = _run_counted(train_cli.main, argv + ["--max_steps", str(steps)])
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    # the debug dump at step 1 decodes once more, in eval mode
-    _expect(label, counts, TRAIN_DECODE, steps, evals=1)
+    # each debug dump decodes once more, in eval mode
+    _expect(label, counts, TRAIN_DECODE, steps, evals=_dumps(steps))
     steps_m, _ = _metrics(out)
-    last = max(steps_m)   # metrics.jsonl logs step 1 and every 10th
+    first, last = min(steps_m), max(steps_m)
     if not all(math.isfinite(r["total"]) for r in steps_m.values()):
         _fail(f"{label}: loss not finite")
-    line = (f"  {label}: loss {steps_m[1]['total']:.5f} at step 1 -> "
+    line = (f"  {label}: loss {steps_m[first]['total']:.5f} at step {first} -> "
             f"{steps_m[last]['total']:.5f} at step {last}, peak memory {peak_gb:.2f} GiB, "
             f"{wall:.1f} s in all (setup included)")
     if steps > 10:
-        _, rate = _train_rate(out, steps)
-        line += f", {rate:.2f} it/s steady (steps 10-{steps})"
+        _, rate, s0 = _train_rate(out, steps)
+        line += f", {rate:.2f} it/s steady (steps {s0}-{steps})"
         if train_stats:
             line += (f"; phase 5 (reference decoder) {train_stats['rate']:.2f} it/s, "
                      f"{train_stats['peak_gb']:.2f} GiB")
@@ -2223,12 +2328,19 @@ def phase_fused_decoder(device, card, work, train_stats):
             add(summed)
     sound = _apart(runs["dp1"], runs["dp2"], 1)
     broken = _apart(runs["dp1"], runs["no_decoder_sync"], 1)
+    stats = (_bn_apart(runs["dp1"], runs["dp2"]), _bn_apart(runs["dp1"], runs["no_decoder_sync"]))
     print(f"  fused stage 2 (f32), step 1 vs --dp 1: --dp 2 {sound:.2e}, ranks whose fused "
-          f"decoder skips the statistics all-reduce {broken:.2e} (limit {TOL_DP_FIRST_S2:g})")
+          f"decoder skips the statistics all-reduce {broken:.2e} (limit {TOL_DP_FIRST_S2:g}, "
+          f"that control printed only); BatchNorm running statistics after the step: --dp 2 "
+          f"{stats[0]:.2e}, those ranks {stats[1]:.2e} (limit {TOL_DP_BN:g})")
     if not sound <= TOL_DP_FIRST_S2:
         _fail(f"fused --dp 2 is {sound:.2e} from --dp 1, over {TOL_DP_FIRST_S2:g}")
-    if not broken > TOL_DP_FIRST_S2:
-        _fail(f"the fused --dp 2 control ({broken:.2e}) is within {TOL_DP_FIRST_S2:g}")
+    if not stats[0] <= TOL_DP_BN:
+        _fail(f"fused --dp 2's BatchNorm running statistics are {stats[0]:.2e} from --dp 1's, "
+              f"over {TOL_DP_BN:g}")
+    if not stats[1] > TOL_DP_BN:
+        _fail(f"the fused --dp 2 control's BatchNorm running statistics ({stats[1]:.2e}) are "
+              f"within {TOL_DP_BN:g}")
     print(f"  (d) in {time.perf_counter() - t_part:.1f} s")
 
     # (e) the other entry points through the fused decoder: train_multi on
@@ -2272,7 +2384,351 @@ def phase_fused_decoder(device, card, work, train_stats):
     return kernels, total
 
 
+# phase 12: --steps_per_dispatch. The campaign's data (48 frames of 512^2,
+# 24 batches an epoch: three full groups of 8), two epochs, S=8 against S=1
+# from one seed; stage 2 on (a)'s save for 24 steps (one epoch, 3 groups).
+SPD, SPD_FRAMES, SPD_STEPS, SPD_STEPS_S2 = 8, 48, 48, 24
+# the group whose static buffers a control run leaves unrefreshed (a
+# replay: the first group runs eagerly and captures); the gate flip's is
+# the first replay after the flip
+SPD_STALE_GROUP = {"stage 1": 2, "stage 1 fused": 2, "stage 2": 2, "gate flip": 5}
+# S=8 against S=1 as users run them: `index_add_` adds in no fixed order
+# (F5) and the bf16 step amplifies that within a few steps (two S=1 runs
+# part by 1e-3 to 6e-2 of the loss over 16 steps), so the loss over the
+# first two groups (the eager group, then the first replay, the control's
+# stale one) is held within a limit between the sound run's reading and
+# the control's (the readings in PERF.md). Under torch's deterministic
+# algorithms (`_deterministic`) the same comparison is exact: every step's
+# loss and every tensor of the final state equal bit for bit, and each
+# control differs.
+TOL_SPD_LOSS = {"stage 1": 0.3, "stage 1 fused": 0.3, "stage 2": 1e-2}
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """torch's deterministic algorithms (warnings only where an op has
+    none: then it is order-free here, e.g. a scatter's amax)."""
+    import warnings
+
+    import torch
+
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+class _DispatchRecorder:
+    """While active: every training step's total loss (single steps and the
+    (S,) totals of each dispatch), a synchronised timestamp at each
+    iteration that is a multiple of SPD, the graphs captured (with their
+    capture seconds) and replayed; with `stale` = k, the k-th dispatch gets
+    the (k-1)-th's feeds again, so its static buffers keep the previous
+    group (the control)."""
+
+    def __init__(self, stale=None):
+        self.stale = stale
+
+    def __enter__(self):
+        import torch
+
+        from gaussianavatar_torch.engine import loop, train_step
+
+        self.loop, self.ts = loop, train_step
+        self.real = (loop.make_train_step, loop.make_train_steps, train_step.GraphReplay)
+        self.totals, self.stamps, self.captures = [], {}, []
+        self.replays = self.dispatches = 0
+        rec, prev = self, {}
+
+        def stamp(state):
+            if state.iteration % SPD == 0:
+                torch.cuda.synchronize()
+                rec.stamps[state.iteration] = time.perf_counter()
+
+        def make_step(*a, **kw):
+            fn = rec.real[0](*a, **kw)
+
+            def step(state, *sa, **skw):
+                terms, images = fn(state, *sa, **skw)
+                rec.totals.append(terms["total"].reshape(1))
+                stamp(state)
+                return terms, images
+            return step
+
+        def make_steps(*a, **kw):
+            fn = rec.real[1](*a, **kw)
+
+            def steps(state, feeds, *sa, **skw):
+                rec.dispatches += 1
+                if rec.dispatches == rec.stale:
+                    feeds = prev["feeds"]
+                prev["feeds"] = feeds
+                terms, images = fn(state, feeds, *sa, **skw)
+                rec.totals.append(terms["total"])
+                stamp(state)
+                return terms, images
+            return steps
+
+        class Graph(self.real[2]):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                rec.captures.append(self.capture_s)
+
+            def replay(self):
+                rec.replays += 1
+                return super().replay()
+
+        loop.make_train_step, loop.make_train_steps, train_step.GraphReplay = (
+            make_step, make_steps, Graph)
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.make_train_step, self.loop.make_train_steps, self.ts.GraphReplay = self.real
+
+    def values(self):
+        import torch
+
+        return torch.cat(self.totals).float().cpu().tolist()
+
+
+def _spd_run(label, argv, out, spd, steps, stale=None, fused=False, captures=None):
+    """`train` with `argv` at --steps_per_dispatch `spd` for `steps` steps
+    -> {totals, params (the saved net), rate: it/s from the end of group 2
+    to the end, peak GiB, captures, replays, launches, recorder of the
+    blend's last inputs}. Fails unless each blend kernel launched once a
+    step (and, `fused`, each decoder kernel per decode) and `captures`
+    graphs were captured."""
+    import torch
+
+    from gaussianavatar_torch import train as train_cli
+    from gaussianavatar_torch.engine import checkpoint as ckpt
+
+    torch.cuda.reset_peak_memory_stats()
+    with _KernelRecorder() as kernels, _DispatchRecorder(stale) as rec:
+        _, counts, wall = _run_counted(train_cli.main, argv + [
+            "--steps_per_dispatch", str(spd), "--max_steps", str(steps)])
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    what = f"{label}, S={spd}" + (" (control: stale buffers)" if stale else "")
+    totals = rec.values()
+    if len(totals) != steps or not all(map(math.isfinite, totals)):
+        _fail(f"{what}: {len(totals)} step losses recorded, or not finite")
+    if fused:
+        # one debug dump (after step 1, or after the first group of 8)
+        _expect(what, counts, TRAIN_DECODE, steps, evals=1)
+    else:
+        for name in TRAIN_KERNELS:
+            if counts[name] != steps:
+                _fail(f"{what} launched {name} {counts[name]} times, not once per step")
+    n_groups = steps // SPD
+    if captures is not None:
+        want = (captures, n_groups - captures) if spd > 1 else (0, 0)
+        if (len(rec.captures), rec.replays) != want:
+            _fail(f"{what}: {len(rec.captures)} graphs captured and {rec.replays} replays, not "
+                  f"{want}")
+    rate = (steps - 2 * SPD) / (rec.stamps[steps] - rec.stamps[2 * SPD])
+    sd = torch.load(os.path.join(ckpt.ckpt_dir(out, ckpt.latest_epoch(out)), ckpt.CKPT_NAME),
+                    weights_only=True)
+    print(f"  {what}: {rate:.2f} it/s (steps {2 * SPD + 1}-{steps}), peak memory "
+          f"{peak_gb:.2f} GiB, graphs captured in {[round(c, 3) for c in rec.captures]} s, "
+          f"{rec.replays} replays, launches {counts}, loss {totals[0]:.5f} -> {totals[-1]:.5f}, "
+          f"{wall:.1f} s in all (setup included)")
+    return {"totals": totals, "params": sd, "rate": rate, "peak_gb": peak_gb,
+            "captures": rec.captures, "replays": rec.replays, "launches": counts,
+            "kernels": kernels.rec}
+
+
+def _pair_count_cost(rec, card):
+    """H-bwd and the scatter on a training step's recorded inputs, over the
+    whole slot table (what the step runs since the graph needs a static
+    length) against the binned prefix (what it ran before): the prefix's
+    rows bit-identical, the rest 0; time and peak memory of each."""
+    import torch
+
+    from gaussianavatar_torch.ops.rasterize_tile import blend_tiles_bwd, scatter_pair_grads
+
+    args, caps = _bwd_inputs(rec)
+    n = int(args[2][-1])
+    L = args[1].shape[0]
+    prefix = (args[0], args[1][:n]) + args[2:]
+
+    def run(a):
+        return scatter_pair_grads(blend_tiles_bwd(*a, caps=caps), a[1], a[0].shape[0])
+
+    full_rows, pre_rows = blend_tiles_bwd(*args, caps=caps), blend_tiles_bwd(*prefix, caps=caps)
+    if not torch.equal(full_rows[:n], pre_rows) or bool(full_rows[n:].any()):
+        _fail("H-bwd over the whole slot table does not give the prefix's rows and zeros")
+    out = {}
+    for name, a in (("whole table", args), ("binned prefix", prefix)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run(a)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        out[name] = (_time_ms(lambda: run(a), reps=20), peak)
+    print(f"  the backward's static pair count: {L} slots, {n} binned; H-bwd + scatter "
+          f"{out['whole table'][0]:.4f} ms and {out['whole table'][1]:.0f} MiB over the whole "
+          f"table against {out['binned prefix'][0]:.4f} ms and {out['binned prefix'][1]:.0f} MiB "
+          f"over the prefix, on {card}")
+    return out
+
+
+def _loss_apart(a, b, steps):
+    """The largest relative difference of a step's loss over the first
+    `steps` of run b from run a's."""
+    return max(abs(y - x) / abs(x) for x, y in list(zip(a["totals"], b["totals"]))[:steps])
+
+
+def _weights_apart(a, b):
+    """The largest relative L2 distance of a weight tensor (two or more
+    dimensions) after run b from run a's; printed, not held (the biases
+    and BatchNorm affines that a BatchNorm follows move by Adam's +-lr on
+    float noise)."""
+    return max(float((b["params"][k].float() - v.float()).norm() / v.float().norm())
+               for k, v in a["params"].items() if v.is_floating_point() and v.dim() >= 2)
+
+
+def _state_apart(a, b):
+    """(largest |difference| of a step's loss, of a final tensor) of run b
+    from run a."""
+    loss = max(abs(y - x) for x, y in zip(a["totals"], b["totals"]))
+    state = max(float((b["params"][k].float() - v.float()).abs().max())
+                for k, v in a["params"].items() if v.is_floating_point())
+    return loss, state
+
+
+def phase_dispatch(device, card, work):
+    """Phase 12: --steps_per_dispatch 8 (a CUDA graph of 8 steps, replayed)
+    against --steps_per_dispatch 1, each beside a control whose replay keeps
+    one group's static batch buffers stale: (a) stage 1 on the campaign's
+    48 frames, reference and fused decoders, 48 steps; (b) stage 2 on (a)'s
+    save, 24 steps; (c) a gate flip inside the run (LPIPS from epoch 2, AIAP
+    on), two captures; (d) (a)-(c) again under torch's deterministic
+    algorithms, exact. -> (H-fwd's error, H-bwd's error, {kernel: launches}
+    over every run)."""
+    from gaussianavatar_torch import export_stage_1, gen_pose_map_frames
+    from gaussianavatar_torch.data.synthetic_writer import write_synthetic_dataset
+    from gaussianavatar_torch.engine import checkpoint as ckpt
+    from gaussianavatar_torch.ops.lpips import random_lpips_weights
+
+    import numpy as np
+
+    data = os.path.join(work, "data48")
+    t0 = time.perf_counter()
+    write_synthetic_dataset(data, n_train=SPD_FRAMES, n_test=2, image_size=512, device=device)
+    print(f"  wrote {SPD_FRAMES} training frames of 512x512 in {time.perf_counter() - t0:.1f} s")
+    checks, total = [], {}
+    out = lambda name: os.path.join(work, f"spd_{name}")
+
+    def run(label, argv_for, name, spd, steps, stale=None, fused=False, captures=1):
+        got = _spd_run(label, argv_for(out(name)), out(name), spd, steps, stale, fused,
+                       captures)
+        for k, v in got["launches"].items():
+            total[k] = total.get(k, 0) + v
+        return got
+
+    def hold(label, sound, control, again=None):
+        steps = SPD_STALE_GROUP[label] * SPD
+        s, c = _loss_apart(*sound, steps), _loss_apart(sound[0], control, steps)
+        line = (f"  {label}, S=8 vs S=1: loss over steps 1-{steps} {s:.2e} (control {c:.2e}, "
+                f"limit {TOL_SPD_LOSS[label]:g}); weights after the run {_weights_apart(*sound):.2e}"
+                f" (control {_weights_apart(sound[0], control):.2e})")
+        if again is not None:
+            line += (f"; S=1 vs S=1: loss {_loss_apart(sound[0], again, steps):.2e}, weights "
+                     f"{_weights_apart(sound[0], again):.2e}")
+        print(line)
+        checks.append((f"{label}: loss", (s, c), TOL_SPD_LOSS[label]))
+
+    s1 = lambda extra: lambda o: _train_argv(data, o) + extra
+    cases = {"stage 1": (s1([]), SPD_STEPS, False, 1),
+             "stage 1 fused": (s1(["--fused_decoder", "1"]), SPD_STEPS, True, 1)}
+
+    # (a) stage 1, reference then fused decoder
+    t_phase = time.perf_counter()
+    runs = {}
+    for label, (argv_for, steps, fused, caps) in cases.items():
+        key = label.replace(" ", "_")
+        got = [run(label, argv_for, f"{key}_s{spd}{tag}", spd, steps, stale, fused, caps)
+               for spd, stale, tag in ((1, None, ""), (SPD, None, ""),
+                                       (SPD, SPD_STALE_GROUP[label], "_control"),
+                                       (1, None, "_again"))]
+        runs[label] = got
+        hold(label, got[:2], got[2], again=got[3])
+        print(f"  {label}: S=8 {got[1]['rate']:.2f} it/s against S=1 {got[0]['rate']:.2f} "
+              f"({got[1]['rate'] / got[0]['rate']:.2f}x), peak memory {got[1]['peak_gb']:.2f} "
+              f"against {got[0]['peak_gb']:.2f} GiB, capture {got[1]['captures'][0]:.3f} s, "
+              f"on {card}")
+    fwd_err, bwd_err, _ = _hold_train_batch(runs["stage 1"][1]["kernels"], card,
+                                            "graph-replayed batch", timed=False)
+    _pair_count_cost(runs["stage 1"][0]["kernels"], card)
+    print(f"  (a) in {time.perf_counter() - t_phase:.1f} s")
+
+    # (b) stage 2 on (a)'s S=8 save
+    t_phase = time.perf_counter()
+    s1_out = out("stage_1_s8")
+    stage1 = ckpt.ckpt_dir(s1_out, ckpt.latest_epoch(s1_out, ckpt.TRAIN_NAME))
+    export_stage_1.main(["-m", s1_out, "-s", data])
+    gen_pose_map_frames.main(["--source_path", data, "--synthetic", "--size", "128"])
+    cases["stage 2"] = (lambda o: ["-s", data, "-m", o, "--train_stage", "2", "--stage1_out_path",
+                                   stage1, "--dataset_type", "synthetic", "--no_lpips"],
+                        SPD_STEPS_S2, False, 1)
+    argv_for, steps, _, _ = cases["stage 2"]
+    got = [run("stage 2", argv_for, name, spd, steps, stale)
+           for name, spd, stale in (("s2_s1", 1, None), ("s2_s8", SPD, None),
+                                    ("s2_s8_control", SPD, SPD_STALE_GROUP["stage 2"]))]
+    hold("stage 2", got[:2], got[2])
+    print(f"  stage 2: S=8 {got[1]['rate']:.2f} it/s against S=1 {got[0]['rate']:.2f}, peak "
+          f"memory {got[1]['peak_gb']:.2f} against {got[0]['peak_gb']:.2f} GiB, on {card}")
+    print(f"  (b) in {time.perf_counter() - t_phase:.1f} s")
+
+    # (c) the LPIPS gate flips at the boundary into epoch 2: a second capture
+    t_phase = time.perf_counter()
+    proj = os.path.join(work, "spd_lpips_project")
+    os.makedirs(os.path.join(proj, "assets", "lpips"), exist_ok=True)
+    np.savez(os.path.join(proj, "assets", "lpips", "lpips_alex.npz"), **random_lpips_weights(0))
+    cases["gate flip"] = (lambda o: [a for a in _train_argv(data, o) if a != "--no_lpips"] + [
+        "--use_aiap", "--lpips_start_iter", "1", "--project_path", proj], SPD_STEPS, False, 2)
+    argv_for, steps, _, caps = cases["gate flip"]
+    got = [run("gate flip", argv_for, name, spd, steps, captures=caps)
+           for name, spd in (("flip_s1", 1), ("flip_s8", SPD))]
+    print(f"  gate flip: S=8 {got[1]['rate']:.2f} it/s against S=1 {got[0]['rate']:.2f} (the S=8 "
+          f"run captures a second graph inside the window), peak memory {got[1]['peak_gb']:.2f} "
+          f"against {got[0]['peak_gb']:.2f} GiB")
+    print(f"  (c) in {time.perf_counter() - t_phase:.1f} s")
+
+    # (d) every case again under the deterministic algorithms: exact
+    t_phase = time.perf_counter()
+    with _deterministic():
+        for label, (argv_for, steps, fused, caps) in cases.items():
+            key = "det_" + label.replace(" ", "_")
+            got = [run(f"{label}, deterministic", argv_for, f"{key}_s{spd}{tag}", spd, steps,
+                       stale, fused, caps)
+                   for spd, stale, tag in ((1, None, ""), (SPD, None, ""),
+                                           (SPD, SPD_STALE_GROUP[label], "_control"))]
+            s, c = _state_apart(*got[:2]), _state_apart(got[0], got[2])
+            print(f"  {label}, deterministic, S=8 vs S=1: largest |loss difference| {s[0]:.3e}, "
+                  f"largest |final tensor difference| {s[1]:.3e} (control {c[0]:.3e}, "
+                  f"{c[1]:.3e}; limit 0)")
+            checks.append((f"{label}, deterministic: losses", (s[0], c[0]), 0.0))
+            checks.append((f"{label}, deterministic: final state", (s[1], c[1]), 0.0))
+    print(f"  (d) in {time.perf_counter() - t_phase:.1f} s")
+
+    for what, (sound_v, control_v), limit in checks:
+        if not sound_v <= limit < control_v:
+            _fail(f"{what}: S=8 against S=1 {sound_v:.2e}, control {control_v:.2e}: the limit "
+                  f"{limit:g} does not lie between them")
+    return fwd_err, bwd_err, total
+
+
 def main():
+    # cuBLAS's workspace fixed (the size PyTorch gives it on this card), so
+    # phase 12's runs under the deterministic algorithms reduce in one order
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -2321,19 +2777,28 @@ def main():
         t11 = time.perf_counter()
         decoder_kernels, _ = phase_fused_decoder(device, card, work, train_stats)
         print(f"  phase 11 in {time.perf_counter() - t11:.1f} s")
+        print("phase 12: --steps_per_dispatch 8 (a CUDA graph of 8 training steps, replayed) "
+              "against 1: stage 1 (both decoders), stage 2, a gate flip")
+        t12 = time.perf_counter()
+        p12_fwd_err, p12_bwd_err, p12_counts = phase_dispatch(device, card, work)
+        print(f"  phase 12 in {time.perf_counter() - t12:.1f} s")
     # launches: each main path's run, added (the render's H-fwd, training's,
     # then the resumed run's, eval's and the novel view's, then stage 2's,
-    # then phase 8's, then phase 9's, then phase 10's)
+    # then phase 8's, then phase 9's, then phase 10's, then phase 12's; the
+    # decoder kernels' phase 11's, then phase 12's)
     fwd["launches"] += (train_counts["blend_fwd"] + rest_counts["blend_fwd"]
                         + s2_counts["blend_fwd"] + p8_counts["blend_fwd"]
-                        + p9_counts["blend_fwd"] + p10_counts["blend_fwd"])
+                        + p9_counts["blend_fwd"] + p10_counts["blend_fwd"]
+                        + p12_counts["blend_fwd"])
     bwd["launches"] += (rest_counts["blend_bwd"] + s2_counts["blend_bwd"]
                         + p8_counts["blend_bwd"] + p9_counts["blend_bwd"]
-                        + p10_counts["blend_bwd"])
+                        + p10_counts["blend_bwd"] + p12_counts["blend_bwd"])
+    for k in decoder_kernels:
+        k["launches"] += p12_counts[k["name"]]
     fwd["max_abs_err"] = max(fwd["max_abs_err"], train_fwd_err, s2_fwd_err, p8_fwd_err,
-                             p9_fwd_err, p10_fwd_err)
+                             p9_fwd_err, p10_fwd_err, p12_fwd_err)
     bwd["max_abs_err"] = max(bwd["max_abs_err"], s2_bwd_err, p8_bwd_err, p9_bwd_err,
-                             p10_bwd_err)
+                             p10_bwd_err, p12_bwd_err)
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [fwd, bwd] + decoder_kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -156,8 +156,6 @@ PORT_RASTER_FIELDS = ("tile_size", "max_tiles_per_gaussian",
 # The other fields the port parses (they round-trip through cfg_args.json)
 # and does not act on, each with the reason.
 PORT_IGNORED_FIELDS = {
-    "steps_per_dispatch": "the JAX package scans S optimizer steps per dispatch; "
-                          "the port dispatches one step at a time",
     "cache_frames": "the port keeps every frame on the device as a uint8 bank",
     "train_mode": "read by neither package",
     "gaussian_kernel_size": "read by neither package",

@@ -1,13 +1,24 @@
 """The training loop (counterpart of gaussianavatar_tpu/engine/loop.py,
 lean), stage 1 and stage 2: epochs over shuffled drop-last batches, the
 regulariser decay (x0.85 every 20 epochs), the pose-optimization and LPIPS
-epoch gates, the loss and it/s log at the first step of a run and every 10
-steps (stdout and metrics.jsonl), the debug dumps every `log_iter` steps
-from the first (`log/NNNNN_pred.png` and `_gt.png`, the batch's renders and
-GT side by side, and `log/pred_NNNNN.ply`, the first frame's posed points
-in eval mode), checkpoints (`net/iteration_N/net_torch.pt` and
-`train_torch.pt`) at the save epochs and at the end, and resuming from one
-(`checkpoint_epochs`) with the JAX loop's semantics.
+epoch gates, dispatch groups of `steps_per_dispatch` steps, the loss and
+it/s log (stdout and metrics.jsonl), the debug dumps (`log/NNNNN_pred.png`
+and `_gt.png`, the batch's renders and GT side by side, and
+`log/pred_NNNNN.ply`, the first frame's posed points in eval mode),
+checkpoints (`net/iteration_N/net_torch.pt` and `train_torch.pt`) at the
+save epochs and at the end, and resuming from one (`checkpoint_epochs`)
+with the JAX loop's semantics.
+
+The groups are the JAX loop's (`epoch_groups`): within an epoch the
+batches are taken S at a time (S = `steps_per_dispatch`, 8 by default) and
+a full group runs as one dispatch (engine/train_step.make_train_steps: on
+the card one replay of a CUDA graph of the S steps); a group cut short by
+the epoch's end or by `max_steps` runs as single steps. A group is logged,
+with its last step's terms, when the iteration after it is within S past a
+multiple of 10, or when it is the run's first; the dumps fire when a
+multiple of `log_iter` (plus one) falls inside the group, with the last
+step's renders. The it/s clock starts after the run's first group (kernel
+builds and the graph's capture left out).
 
 Stage 2 boots from a stage-1 save (`stage1_out_path`, through
 `checkpoint.stage_load`) and keeps every training frame's input posmap on
@@ -18,14 +29,15 @@ the decoder, the geometry features and the embeddings from stage 1 again
 
 Left out, because the port does not need them: the TPU capacity machinery
 (need tables and their retunes, chunk budgets, cascade tiers, footprint
-adaptation; the port's blend walks every tile's whole range),
-`steps_per_dispatch` scans and `device_prefetch` (dispatch-latency work for
-the TPU's host link).
+adaptation; the port's blend walks every tile's whole range) and
+`device_prefetch` (the feeds are a few KB, copied before each dispatch).
 
 Inside a data-parallel group (parallel/mesh.py; `train.py --dp N` starts
 one) every rank holds the GT bank (and in stage 2 the posmap bank), draws
 the same shuffle and steps on its shard of each global batch; the network
-is broadcast from rank 0 after init or resume. The iteration, the gates,
+is broadcast from rank 0 after init or resume. A group's S steps run
+eagerly there (its gloo collectives cannot be captured), with the same
+group boundaries and log cadence. The iteration, the gates,
 the regulariser decay and the learning-rate schedule follow the global
 step, and it/s counts global steps, as in the JAX `train(..., dp)`. Rank 0
 alone writes `cfg_args.json`, `metrics.jsonl`, the debug dumps (its shard
@@ -41,10 +53,11 @@ does.
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
 from os.path import join
-from typing import Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -56,7 +69,7 @@ from gaussianavatar_torch.engine.inference import frame_gaussians, load_fixed_in
 from gaussianavatar_torch.engine.logging_utils import open_logger
 from gaussianavatar_torch.engine.optim import build_optimizer
 from gaussianavatar_torch.engine.setup import setup_avatar
-from gaussianavatar_torch.engine.train_step import TrainState, make_train_step
+from gaussianavatar_torch.engine.train_step import TrainState, make_train_step, make_train_steps
 from gaussianavatar_torch.ops.knn import host_knn
 from gaussianavatar_torch.ops.lpips import lpips_status
 from gaussianavatar_torch.ops.rasterize import raster_config
@@ -134,6 +147,43 @@ def build_gt_bank(dataset, device) -> torch.Tensor:
     print(f"GT bank on {device}: {len(dataset)} frames of {H}x{W}, "
           f"{gt_bank.numel() / 2**20:.0f} MB uint8")
     return gt_bank
+
+
+class Group(NamedTuple):
+    """One dispatch group of an epoch."""
+    size: int        # steps in the group
+    dispatch: bool   # one S-step dispatch; else `size` single steps
+    end: int         # the iteration after the group
+    log: bool        # a metrics line with the group's last terms
+    dump: bool       # the debug dumps, with the group's last renders
+
+
+def epoch_groups(n_batches: int, spd: int, first_iter: int, run_start: int, log_iter: int,
+                 max_steps: Optional[int] = None) -> List[Group]:
+    """The groups of one epoch of `n_batches` batches, starting after
+    iteration `first_iter`, in a run that started after `run_start`: the
+    JAX loop's rule (gaussianavatar_tpu/engine/loop.py:490-546). A group
+    takes S = `spd` batches, or fewer so that `max_steps` is exact (at least
+    one); only a group of S is a dispatch. It is logged when its end lies
+    within S past a multiple of 10 (`first_iter % 10 < spd`) or within S of
+    the run's start, and dumps when its end minus one lies within S past a
+    multiple of `log_iter`. The epoch ends early once `max_steps` is
+    reached."""
+    spd = max(int(spd), 1)
+    groups, left = [], n_batches
+    while left > 0:
+        target = spd
+        if max_steps is not None:
+            target = max(min(target, max_steps - first_iter), 1)
+        size = min(target, left)
+        left -= size
+        first_iter += size
+        groups.append(Group(size, spd > 1 and size == spd, first_iter,
+                            first_iter % 10 < spd or first_iter <= run_start + spd,
+                            (first_iter - 1) % log_iter < spd))
+        if max_steps is not None and first_iter >= max_steps:
+            break
+    return groups
 
 
 def save_image_grid(path: str, images: np.ndarray):
@@ -221,12 +271,18 @@ def train(
         state = TrainState(net, build_optimizer(net, opt, steps_per_epoch, mp.train_stage))
         epoch_start = restore_state(state, mp, checkpoint_epochs)
         mesh.replicate(net, grp)
-        first_it = state.iteration + 1
-        step = make_train_step(net, bundle.body_model, bundle.assets, opt, H, W, bg,
-                               raster_config(cfg, train=True), gt_bank,
-                               train_stage=mp.train_stage, lpips_fn=lpips_fn,
-                               aiap_nn=aiap_nn, inp_bank=inp_bank)
+        step_args = (net, bundle.body_model, bundle.assets, opt, H, W, bg,
+                     raster_config(cfg, train=True), gt_bank)
+        step_kw = dict(train_stage=mp.train_stage, lpips_fn=lpips_fn, aiap_nn=aiap_nn,
+                       inp_bank=inp_bank)
+        step = make_train_step(*step_args, **step_kw)
+        spd = max(int(opt.steps_per_dispatch), 1)
+        steps = make_train_steps(*step_args, steps=spd, **step_kw) if spd > 1 else None
+        if steps is not None and grp is not None:
+            print(f"--dp: each group of {spd} steps runs eagerly, one step after another "
+                  "(the ranks' gloo collectives cannot be captured in a CUDA graph)")
 
+        run_start = first_iter = clock_iter = state.iteration
         ema_loss = 0.0
         t_start = time.time()
         done = False
@@ -235,37 +291,44 @@ def train(
             w_rgl = adjust_loss_weights(opt.lambda_rgl, epoch, "decay", epoch_start, 20)
             pose_gate = pose_opt_gate_value(mp.train_stage, epoch, opt)
             lpips_gate = lpips_gate_value(lpips_fn is not None, epoch, opt)
-            for batch in loader:
-                feed = mesh.shard_batch({k: v for k, v in batch.items() if k not in DROP_KEYS},
-                                        grp)
-                terms, images = step(state, feed, w_rgl, pose_gate, lpips_gate)
-                it = state.iteration
-                if lead and (it - 1) % opt.log_iter == 0:
-                    # the debug dumps (before the clock starts, so it/s leaves them out)
-                    log_dir = join(mp.model_path, "log")
-                    save_image_grid(join(log_dir, f"{it:05d}_pred.png"), images.cpu().numpy())
-                    idx = torch.as_tensor(feed["pose_idx"], device=gt_bank.device).long()
-                    save_image_grid(join(log_dir, f"{it:05d}_gt.png"),
-                                    (gt_bank[idx].float() / 255.0).cpu().numpy())
-                    save_ply_points(join(log_dir, f"pred_{it:05d}.ply"),
-                                    debug_points(bundle, feed, inp_bank))
-                if it == first_it:
-                    # it/s leaves out the run's first step (kernel builds,
-                    # allocator warm-up)
+            batches = iter(loader)
+            for group in epoch_groups(steps_per_epoch, spd, first_iter, run_start,
+                                      opt.log_iter, max_steps):
+                feeds = [mesh.shard_batch({k: v for k, v in batch.items() if k not in DROP_KEYS},
+                                          grp) for batch in itertools.islice(batches, group.size)]
+                if group.dispatch:
+                    terms, images = steps(state, feeds, w_rgl, pose_gate, lpips_gate)
+                    terms = {k: v[-1] for k, v in terms.items()}
+                else:
+                    for feed in feeds:
+                        terms, images = step(state, feed, w_rgl, pose_gate, lpips_gate)
+                first_iter = state.iteration
+                if first_iter <= run_start + spd:
+                    # it/s leaves out the run's first group (kernel builds,
+                    # allocator warm-up, the graph's capture)
                     if terms["total"].is_cuda:
                         torch.cuda.synchronize()
-                    t_start = time.time()
-                if it % 10 == 0 or it == first_it:
+                    t_start, clock_iter = time.time(), first_iter
+                if group.log:
                     loss = float(terms["total"])
                     ema_loss = 0.4 * loss + 0.6 * ema_loss if ema_loss else loss
                     dt = time.time() - t_start
-                    rate = f" ({(it - first_it) / dt:.2f} it/s)" if it > first_it else ""
-                    print(f"iter {it} epoch {epoch} loss {ema_loss:.5f}{rate}")
-                    logger.log(it, {**{k: float(v) for k, v in terms.items()},
-                                    "iter_time": dt / (it - first_it + 1), "w_rgl": w_rgl})
-                if max_steps is not None and it >= max_steps:
+                    n = first_iter - clock_iter
+                    rate = f" ({n / dt:.2f} it/s)" if n else ""
+                    print(f"iter {first_iter} epoch {epoch} loss {ema_loss:.5f}{rate}")
+                    logger.log(first_iter, {**{k: float(v) for k, v in terms.items()},
+                                            "iter_time": dt / max(n, 1), "w_rgl": w_rgl})
+                if lead and group.dump:
+                    log_dir = join(mp.model_path, "log")
+                    save_image_grid(join(log_dir, f"{first_iter:05d}_pred.png"),
+                                    images.cpu().numpy())
+                    idx = torch.as_tensor(feeds[-1]["pose_idx"], device=gt_bank.device).long()
+                    save_image_grid(join(log_dir, f"{first_iter:05d}_gt.png"),
+                                    (gt_bank[idx].float() / 255.0).cpu().numpy())
+                    save_ply_points(join(log_dir, f"pred_{first_iter:05d}.ply"),
+                                    debug_points(bundle, feeds[-1], inp_bank))
+                if max_steps is not None and first_iter >= max_steps:
                     done = True
-                    break
             if lead and epoch > saving_epochs[0] and epoch % mp.save_epoch == 0:
                 print(f"[Epoch {epoch}] saving model")
                 ckpt.save_train_state(mp.model_path, epoch, state)

@@ -23,18 +23,21 @@ optax / JAX expression in the same order:
     no update and no state): the port leaves them out of every group and
     turns their gradients off.
 
-Moments and counts stay on the parameters' device; nothing here waits for
-the device. Each optimizer's `state_dict()` holds its update count and its
-moments keyed by the parameters' names in the network's `state_dict`, so a
-checkpoint resumes training where it stopped (engine/checkpoint.py) and
-bridge.py maps the moments to and from the optax state.
+Moments and counts stay on the parameters' device, and every step is device
+work only: Adam's count is a device int32 tensor, and its learning rate and
+bias corrections are float32 device scalars formed from it, so a CUDA graph that records a step replays it at
+each later count (engine/train_step.make_train_steps). Nothing here waits for
+the device. Each optimizer's `state_dict()` holds its update count (Adam's
+read from the device) and its moments keyed by the parameters' names in the
+network's `state_dict`, so a checkpoint resumes training where it stopped
+(engine/checkpoint.py) and bridge.py maps the moments to and from the optax
+state.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Sequence
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -42,14 +45,19 @@ B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
 def multistep_schedule(base_lr: float, milestones: Sequence[int],
-                       gamma: float = 0.1) -> Callable[[int], np.float32]:
-    """count -> base_lr * gamma ** (milestones passed), in float32 as JAX
-    computes it."""
+                       gamma: float = 0.1) -> Callable[[torch.Tensor], torch.Tensor]:
+    """count (an int32 tensor, or an int) -> base_lr * gamma ** (milestones
+    passed), a float32 scalar on the count's device, formed in float32 as
+    JAX forms it; a device count needs no host read."""
     ms = sorted(int(m) for m in milestones)
 
-    def fn(count: int) -> np.float32:
-        n = sum(count >= m for m in ms)
-        return np.float32(base_lr) * np.power(np.float32(gamma), np.float32(n))
+    def fn(count) -> torch.Tensor:
+        count = torch.as_tensor(count)
+        f32 = lambda v: torch.full((), v, dtype=torch.float32, device=count.device)
+        n = f32(0.0)
+        for m in ms:
+            n = n + (count >= m).to(torch.float32)
+        return f32(base_lr) * torch.pow(f32(gamma), n)
 
     return fn
 
@@ -76,29 +84,37 @@ class _Moments:
 
 
 class Adam(_Moments):
-    """optax.adam(learning_rate=lr_fn) over one group of named parameters."""
+    """optax.adam(learning_rate=lr_fn) over one group of named parameters;
+    `lr_fn` maps the device count to the rate (`multistep_schedule`)."""
 
-    def __init__(self, params: Dict[str, nn.Parameter], lr_fn: Callable[[int], float]):
+    def __init__(self, params: Dict[str, nn.Parameter],
+                 lr_fn: Callable[[torch.Tensor], torch.Tensor]):
         super().__init__(params)
         self.lr_fn = lr_fn
-        self.count = 0
+        self.count_t = torch.zeros((), dtype=torch.int32, device=self.params[0].device)
+
+    @property
+    def count(self) -> int:
+        """The update count (a host read of the device counter)."""
+        return int(self.count_t)
 
     def state_dict(self) -> dict:
         return {"count": self.count, **self._moments_state()}
 
+    @torch.no_grad()
     def load_state_dict(self, state: dict):
         self._load_moments(state)
-        self.count = int(state["count"])
+        self.count_t.fill_(int(state["count"]))
 
     @torch.no_grad()
     def step(self):
-        # float32 scalars, as JAX forms them; a Python float that holds a
-        # float32 value enters a float32 tensor op unchanged
-        step_size = float(-self.lr_fn(self.count))
-        self.count += 1
-        f32 = np.float32
-        bc1 = float(f32(1) - f32(B1) ** f32(self.count))
-        bc2 = float(f32(1) - f32(B2) ** f32(self.count))
+        # float32 scalars on the device, formed as JAX forms them
+        step_size = -self.lr_fn(self.count_t)
+        self.count_t += 1
+        f32 = lambda v: torch.full((), v, dtype=torch.float32, device=self.count_t.device)
+        cf = self.count_t.to(torch.float32)
+        bc1 = f32(1.0) - torch.pow(f32(B1), cf)
+        bc2 = f32(1.0) - torch.pow(f32(B2), cf)
         for p, mu, nu in zip(self.params, self.mu, self.nu):
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             mu.copy_((1 - B1) * g + B1 * mu)
@@ -187,10 +203,11 @@ def build_optimizer(net: nn.Module, opt_cfg, steps_per_epoch: int,
     named = {"net": {}, "geo": {}, "embed": {}, "pose_enc": {}}
     for name, p in net.named_parameters():
         named[param_group(name)][name] = p
+    adam = lambda params, lr: Adam(params, multistep_schedule(lr, ms))
     if train_stage == 1:
         return GroupOptimizer({
-            "net": Adam(named["net"], multistep_schedule(opt_cfg.lr_net, ms)),
-            "geo": Adam(named["geo"], multistep_schedule(opt_cfg.lr_geomfeat, ms)),
+            "net": adam(named["net"], opt_cfg.lr_net),
+            "geo": adam(named["geo"], opt_cfg.lr_geomfeat),
             "embed": SparseAdam(named["embed"], getattr(opt_cfg, "lr_pose", 5e-3)),
         })
     if train_stage != 2:
@@ -199,6 +216,6 @@ def build_optimizer(net: nn.Module, opt_cfg, steps_per_epoch: int,
         for p in named[group].values():
             p.requires_grad_(False)
     return GroupOptimizer({
-        "net": Adam(named["net"], multistep_schedule(opt_cfg.lr_net * 0.1, ms)),
-        "pose_enc": Adam(named["pose_enc"], multistep_schedule(opt_cfg.lr_net, ms)),
+        "net": adam(named["net"], opt_cfg.lr_net * 0.1),
+        "pose_enc": adam(named["pose_enc"], opt_cfg.lr_net),
     })

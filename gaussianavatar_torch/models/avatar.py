@@ -198,12 +198,17 @@ def pose_gaussians(
     return torch.einsum("bnpq,bnq->bnp", pt_mats[..., :3, :3], cano_pts) + pt_mats[..., :3, 3]
 
 
-def scale_warmup(scales: torch.Tensor, iteration: int) -> torch.Tensor:
+def scale_warmup(scales: torch.Tensor, iteration) -> torch.Tensor:
     """Scale warm-up: scales * 1e-3 * iteration while iteration < 1000 (the
-    factor is formed in the scales' dtype, as the JAX package forms it)."""
+    factor is formed in the scales' dtype, as the JAX package forms it).
+    `iteration` is an int, or the train step's int32 device counter: then
+    the branch is a device select of the same values (a CUDA graph of the
+    step takes the branch of each replay's iteration)."""
+    one_e3 = torch.full((), 1e-3, dtype=scales.dtype, device=scales.device)
+    if torch.is_tensor(iteration):
+        return torch.where(iteration >= 1000, scales, scales * (one_e3 * iteration))
     if iteration >= 1000:
         return scales
-    one_e3 = torch.tensor(1e-3, dtype=scales.dtype, device=scales.device)
     return scales * (one_e3 * iteration)
 
 

@@ -39,7 +39,7 @@ class BodyModel(NamedTuple):
     model_type: str = "smpl"                        # one of MODEL_TYPES
     # expression blendshapes (smplx, flame); None for the other model types
     expr_dirs: Optional[torch.Tensor] = None        # (V, 3, n_expr)
-    extra_joint_ids: Optional[np.ndarray] = None    # (E,) official meshes only
+    extra_joint_ids: Optional[torch.Tensor] = None  # (E,) int64, official meshes only
 
     def to(self, device) -> "BodyModel":
         move = lambda x: x.to(device) if isinstance(x, torch.Tensor) else x
@@ -97,7 +97,7 @@ def _from_struct(data: dict, model_type: str, num_betas: int,
         faces=_to_np(data["f"]).astype(np.int64),
         model_type=model_type,
         expr_dirs=t(expr_dirs) if expr_dirs is not None else None,
-        extra_joint_ids=extra_ids,
+        extra_joint_ids=torch.as_tensor(extra_ids) if extra_ids is not None else None,
     )
 
 

@@ -47,7 +47,9 @@ def extra_joint_ids(model_type: str) -> np.ndarray:
 
 
 def select_extra_joints(vertices: torch.Tensor, joints: torch.Tensor,
-                        ids: np.ndarray) -> torch.Tensor:
-    """Append vertex-anchored keypoints: (B, V, 3), (B, J, 3) -> (B, J+E, 3)."""
+                        ids) -> torch.Tensor:
+    """Append vertex-anchored keypoints: (B, V, 3), (B, J, 3) -> (B, J+E, 3).
+    `ids` is the (E,) table, best as a tensor on the vertices' device (the
+    body model keeps it so: no host-to-device copy in the train step)."""
     extra = vertices[:, torch.as_tensor(ids, device=vertices.device)]
     return torch.cat([joints, extra], dim=1)

@@ -8,6 +8,7 @@ topologically sorted `parents`.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -26,6 +27,14 @@ def vertices2joints(J_regressor: torch.Tensor, vertices: torch.Tensor) -> torch.
     return torch.einsum("bik,ji->bjk", vertices, J_regressor)
 
 
+@functools.lru_cache(maxsize=None)
+def _index_on(values: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """An int64 index on `device`, made once (a CUDA graph of the train step
+    cannot capture the host-to-device copy that indexing with a host array
+    makes); never written."""
+    return torch.as_tensor(values, dtype=torch.int64, device=device)
+
+
 def batch_rigid_transform(
     rot_mats: torch.Tensor, joints: torch.Tensor, parents: np.ndarray
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -38,7 +47,8 @@ def batch_rigid_transform(
     B, J = rot_mats.shape[:2]
 
     rel_joints = joints.clone()
-    rel_joints[:, 1:] = joints[:, 1:] - joints[:, parents[1:]]
+    rel_joints[:, 1:] = joints[:, 1:] - joints[:, _index_on(tuple(parents[1:].tolist()),
+                                                            joints.device)]
 
     T_local = torch.zeros((B, J, 4, 4), dtype=rot_mats.dtype, device=rot_mats.device)
     T_local[..., :3, :3] = rot_mats

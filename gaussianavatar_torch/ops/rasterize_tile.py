@@ -350,7 +350,7 @@ def blend_tiles(
     nq, side = _block_split(ts)
     counts = _capped_counts(offsets, caps).to(torch.int32)
     # a tile's blocks walk its rows side by side: each is as deep as the tile
-    order = _deepest_first(counts.repeat_interleave(nq * nq))
+    order = _deepest_first(counts[:, None].expand(G, nq * nq).reshape(-1))
     color = torch.empty((G, 3, PX), dtype=torch.float32, device=dev)
     T_out = torch.empty((G, PX), dtype=torch.float32, device=dev)
     ncon = torch.empty((G, PX), dtype=torch.int32, device=dev)
@@ -597,9 +597,10 @@ class BlendTiles(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_color, g_T, _g_ncon, _g_done):
         packed, sorted_vals, offsets, caps, T, ncon = ctx.saved_tensors
-        # unbinned slots sort last: the pair gradients and their scatter need
-        # only the binned prefix (one host read of its length per backward)
-        sorted_vals = sorted_vals[:int(offsets[-1])]
+        # the whole slot table, a static length: no host read, so a CUDA
+        # graph can record the step. Unbinned slots sort last; H-bwd walks
+        # only the tiles' ranges and leaves their rows 0, which the scatter
+        # adds in as +0
         with record_function("render::blend_bwd"):
             pair = blend_tiles_bwd(packed, sorted_vals, offsets, *ctx.geometry, T, ncon,
                                    g_color.contiguous(), g_T.contiguous(), caps)

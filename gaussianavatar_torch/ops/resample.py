@@ -31,6 +31,14 @@ def _interp_matrix(out_res: int, in_res: int) -> np.ndarray:
     return W
 
 
+@functools.lru_cache(maxsize=16)
+def _interp_matrix_on(out_res: int, in_res: int, dtype: torch.dtype,
+                      device: torch.device) -> torch.Tensor:
+    """`_interp_matrix` on `device`, made once (a CUDA graph of the train
+    step cannot capture the host-to-device copy); never written."""
+    return torch.as_tensor(_interp_matrix(out_res, in_res), dtype=dtype, device=device)
+
+
 def pop_upsample(feat: torch.Tensor, out_res: int) -> torch.Tensor:
     """Upsample (B, C, F, F) NCHW features to (B, C, R, R) with the POP
     grid_sample semantics (see module docstring)."""
@@ -39,6 +47,6 @@ def pop_upsample(feat: torch.Tensor, out_res: int) -> torch.Tensor:
         raise ValueError(f"pop_upsample expects square feature maps, got {F}x{F2}")
     if F == out_res:
         return feat
-    W = torch.as_tensor(_interp_matrix(out_res, F), dtype=feat.dtype, device=feat.device)
+    W = _interp_matrix_on(out_res, F, feat.dtype, feat.device)
     out = torch.einsum("rf,bcfg->bcrg", W, feat)   # rows
     return torch.einsum("sg,bcrg->bcrs", W, out)   # cols

@@ -22,6 +22,13 @@ def _gaussian_1d(window_size: int, sigma: float) -> np.ndarray:
     return (g / g.sum()).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _window(window_size: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The 1-D window on `device`, made once (a CUDA graph of the train step
+    cannot capture the host-to-device copy); never written."""
+    return torch.as_tensor(_gaussian_1d(window_size, 1.5), dtype=dtype, device=device)
+
+
 def _depthwise_filter(img: torch.Tensor, g1d: torch.Tensor, pad: int) -> torch.Tensor:
     """(B, C, H, W) convolved with outer(g, g): along H, then along W."""
     C, k = img.shape[1], g1d.shape[0]
@@ -34,7 +41,7 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
     """Structural similarity of two (B, C, H, W) (or (C, H, W)) batches."""
     if img1.dim() == 3:
         img1, img2 = img1[None], img2[None]
-    g1d = torch.as_tensor(_gaussian_1d(window_size, 1.5), dtype=img1.dtype, device=img1.device)
+    g1d = _window(window_size, img1.dtype, img1.device)
     C = img1.shape[1]
     stacked = torch.cat([img1, img2, img1 * img1, img2 * img2, img1 * img2], dim=1)
     f = _depthwise_filter(stacked, g1d, window_size // 2)

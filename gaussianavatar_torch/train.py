@@ -34,7 +34,22 @@ the AIAP regulariser over a k=5 neighbour graph of the canonical points.
 `--profile_dir` runs `--max_steps` steps (20 when not given) under
 `torch.profiler` (CPU and, on the card, CUDA activities) and writes a
 Chrome trace into the directory, with the step's `train::*` and
-`render::*` ranges (with `--dp`, rank 0's).
+`render::*` ranges (with `--dp`, rank 0's). The run is traced as
+configured: a group of `--steps_per_dispatch` steps replayed as a CUDA
+graph shows as the graph's kernels, without the ranges (pass
+`--steps_per_dispatch 1` for them at every step).
+
+    python -m gaussianavatar_torch.train ... --steps_per_dispatch 8
+
+`--steps_per_dispatch S` (8 by default, as in the JAX package) runs every
+full group of S steps within an epoch as one dispatch: on the card one
+replay of a CUDA graph that holds S whole training steps (forward, the
+kernels, loss, backward, both optimizers), captured after the first such
+group ran eagerly, and again when a gate flips; a capture that fails
+stops the run. A group cut short by the epoch's end or `--max_steps` runs
+step by step; the log and the debug dumps follow the JAX loop's group
+rule. Under `--dp` a group's steps run eagerly (the ranks' collectives
+cannot be captured); on the CPU they run one after another.
 
 LPIPS: with weights under `<project_path>/assets/lpips/` (or the
 repository's), `lpips_alex.npz` or the raw `alexnet*.pth` + `alex.pth` pair

@@ -10,6 +10,7 @@ built on first use. `build_all` starts one `nvcc` per source, all at once.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -38,6 +39,31 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 def launches_since(before: Dict[str, int]) -> Dict[str, int]:
     """Each kernel's launches since `before`, a copy of LAUNCHES."""
     return {name: n - before.get(name, 0) for name, n in LAUNCHES.items()}
+
+
+class GraphLaunches:
+    """The launches a CUDA graph holds. While a graph is captured its
+    wrappers run and count launches that do not happen; a replay launches
+    them all and no wrapper runs. `capturing()` takes the captured launches
+    out of LAUNCHES and keeps them as the graph's; `replayed()` adds them
+    once per replay, so LAUNCHES stays exact."""
+
+    def __init__(self):
+        self.per_replay: Dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def capturing(self):
+        before = dict(LAUNCHES)
+        try:
+            yield self
+        finally:
+            self.per_replay = {k: n for k, n in launches_since(before).items() if n}
+            for name, n in self.per_replay.items():
+                LAUNCHES[name] -= n
+
+    def replayed(self):
+        for name, n in self.per_replay.items():
+            LAUNCHES[name] += n
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -5,7 +5,8 @@ Writes chip_smoke.py's training data (8 synthetic frames of 512^2 from the
 port's writer) into a temporary directory and runs the port's training CLI
 (`gaussianavatar_torch.train.main`, canonical widths: query posmap 512,
 bf16 decoder, B=2, 32px tiles, M=9) under torch.profiler. The stages are the
-`train::*` ranges of engine/train_step.py (decode, loss, backward,
+`train::*` ranges of engine/train_step.py, at `--steps_per_dispatch 1`
+(a replayed CUDA graph records none of them) (decode, loss, backward,
 optimizer, the whole step, and `train::lpips`, the LPIPS term's forward,
 with `--lpips`; its backward lands in `train::backward`) and the `render::*`
 ranges the rasterizer opens
@@ -77,8 +78,13 @@ def main():
     with tempfile.TemporaryDirectory(dir=REPO) as work:
         data, out = os.path.join(work, "data"), os.path.join(work, "out")
         write_synthetic_dataset(data, n_train=8, n_test=1, image_size=512, device="cuda")
+        # one dispatch a step: a replayed CUDA graph drops the record_function
+        # ranges this script reads (the data's 4 batches an epoch never fill a
+        # group of 8 anyway, but a larger set would)
+        print("profiling at --steps_per_dispatch 1: the train::* and render::* ranges are "
+              "recorded only where the step runs eagerly, not under a graph's replay")
         common = ["-s", data, "--dataset_type", "synthetic", "--pose_op_start_iter", "0",
-                  "--no_lpips", "--quiet"]
+                  "--no_lpips", "--quiet", "--steps_per_dispatch", "1"]
         argv = ["-m", out, "--train_stage", "1", "--max_steps", str(args.warmup + args.steps)]
         if args.stage == 2:
             stage1 = os.path.join(work, "out_stage1")

@@ -440,11 +440,13 @@ def fused_cli(tmp_path_factory):
 def test_train_cli_builds_and_runs_the_fused_decoder(fused_cli):
     """`train --fused_decoder 1` builds a ShapeDecoderFused and runs it:
     per step 9 statistics passes (x5's once for its three stages), 11
-    fused stages forward and 11 backward, plus the 11 forwards of the
-    eval-mode debug dump at step 1."""
+    fused stages forward and 11 backward, plus the 11 forwards of each
+    eval-mode debug dump: after steps 2 and 3, the ends of the two groups
+    within 8 steps of the start (the JAX loop's dump rule at 8 steps a
+    dispatch)."""
     assert len(fused_cli["nets"]) == 1
     assert isinstance(fused_cli["nets"][0].pop.decoder, ShapeDecoderFused)
-    assert fused_cli["calls"] == {"column_stats": 9 * 3, "stage_fwd": 11 * 3 + 11,
+    assert fused_cli["calls"] == {"column_stats": 9 * 3, "stage_fwd": 11 * 3 + 11 * 2,
                                   "stage_bwd": 11 * 3}
 
 

@@ -68,9 +68,11 @@ def test_train_with_weights_is_active(data, tmp_path, capsys):
     events, steps = _events(out)
     assert events["lpips"] == "active"
     assert steps and all("vgg" in r and np.isfinite(r["vgg"]) and r["vgg"] > 0 for r in steps)
-    # the debug dumps of the first step
-    assert sorted(os.listdir(join(out, "log"))) == ["00001_gt.png", "00001_pred.png",
-                                                   "pred_00001.ply"]
+    # the debug dumps of the groups (2 steps each) ending within 8 steps of
+    # the start, the JAX loop's rule at 8 steps a dispatch
+    assert sorted(os.listdir(join(out, "log"))) == [
+        "00002_gt.png", "00002_pred.png", "00004_gt.png", "00004_pred.png",
+        "pred_00002.ply", "pred_00004.ply"]
 
 
 @pytest.mark.parametrize("how", ["no_weights", "no_lpips"])

@@ -126,7 +126,8 @@ def _dp_deviation(out1, out2):
     the running means aside) and of an optimizer moment in the epoch-2
     save."""
     logged = [[r for r in _records(out) if "step" in r] for out in (out1, out2)]
-    assert [r["step"] for r in logged[0]] == [r["step"] for r in logged[1]] == [1, 10]
+    # 3-step epochs, logged by the JAX loop's rule at 8 steps a dispatch
+    assert [r["step"] for r in logged[0]] == [r["step"] for r in logged[1]] == [3, 6, 12]
     loss = max(abs(b[k] - a[k]) / abs(a["total"]) for a, b in zip(*logged)
                for k in ("total", "l1", "ssim", "scale", "offset", "geo"))
     (net1, tr1), (net2, tr2) = ((torch.load(join(ckpt.ckpt_dir(out, 2), ckpt.CKPT_NAME),

@@ -267,9 +267,9 @@ def test_cfg_args_interoperate(tmp_path):
 def test_startup_note_names_every_flag_the_port_ignores():
     """The startup note names each config field the port's code never reads
     (as an attribute or a quoted name, outside config.py), and no field it
-    reads: the raster knobs outside PORT_RASTER_FIELDS, steps_per_dispatch,
-    cache_frames and the fields neither package reads. fused_decoder, which
-    the port acts on, is not among them."""
+    reads: the raster knobs outside PORT_RASTER_FIELDS, cache_frames and the
+    fields neither package reads. fused_decoder and steps_per_dispatch,
+    which the port acts on, are not among them."""
     src = "".join(open(f).read() for f in _port_files()
                   if f.startswith(PKG) and not f.endswith("config.py"))
     note = tconfig.ignored_flags_note()
@@ -280,8 +280,8 @@ def test_startup_note_names_every_flag_the_port_ignores():
             assert named(f.name) != read, f.name
     for f in dataclasses.fields(tconfig.RasterParams):
         assert named(f.name) == (f.name not in tconfig.PORT_RASTER_FIELDS), f.name
-    assert named("steps_per_dispatch") and named("cache_frames")
-    assert not named("fused_decoder")
+    assert named("cache_frames")
+    assert not named("fused_decoder") and not named("steps_per_dispatch")
 
 
 def test_checkpoint_roundtrip(tmp_path):

@@ -75,9 +75,12 @@ def test_train_cli_then_render(tmp_path, capsys):
     assert events["lpips"] == lpips_status(os.getcwd())
     assert events["lpips"].startswith("inactive (no weights")
     losses = {r["step"]: r["total"] for r in records if "step" in r}
-    assert sorted(losses) == [1, 10, 20, 30]
+    # the JAX loop's cadence at the default 8 steps a dispatch: 2-step
+    # epochs are groups of 2, logged within 8 of the start and where the
+    # step ends within 8 past a multiple of 10
+    assert sorted(losses) == [2, 4, 6, 8, 10, 12, 14, 16, 20, 22, 24, 26, 30]
     assert all(np.isfinite(v) for v in losses.values())
-    assert losses[30] < 0.8 * losses[1], losses
+    assert losses[30] < 0.8 * losses[2], losses
     # 2 steps per epoch: saved at epoch 10 (a save epoch past 5) and at the end
     assert sorted(os.listdir(join(out, "net"))) == ["iteration_10", "iteration_15"]
 

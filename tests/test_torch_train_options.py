@@ -44,10 +44,11 @@ def test_pos_encoding_and_aiap_train(data, tmp_path, capsys):
     printed = capsys.readouterr().out
     assert "AIAP regularizer on:" in printed and "k=5" in printed
     steps = _metrics(out)
-    assert sorted(steps) == [1, 10, 20]
+    # 2-step groups, logged as the JAX loop logs them at 8 steps a dispatch
+    assert sorted(steps) == [2, 4, 6, 8, 10, 12, 14, 16, 20]
     assert all(np.isfinite(r["aiap"]) and r["aiap"] > 0 and np.isfinite(r["total"])
                for r in steps.values())
-    assert steps[20]["total"] < steps[1]["total"]
+    assert steps[20]["total"] < steps[2]["total"]
     cfg = json.load(open(join(out, "cfg_args.json")))["net"]
     assert (cfg["pos_encoding"], cfg["num_emb_freqs"], cfg["posemb_incl_input"]) == (1, 6, 0)
     sd = torch.load(join(ckpt_dir(out, 10), CKPT_NAME), weights_only=True)
