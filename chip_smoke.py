@@ -1836,6 +1836,7 @@ TRAIN_DECODE = {"decoder_stats": 9, "decoder_stage_fwd": 11, "decoder_stage_bwd"
 EVAL_DECODE = {"decoder_stats": 0, "decoder_stage_fwd": 11, "decoder_stage_bwd": 0}
 FUSED_STEPS, FUSED_F32_STEPS, FUSED_S2_STEPS, FUSED_MULTI_STEPS = TRAIN_STEPS, 10, 3, 3
 BF16_FLOP_PER_S = 989e12      # H100 SXM, dense bfloat16 on the tensor cores
+TF32_FLOP_PER_S = 495e12      # H100 SXM, dense TF32 on the tensor cores
 # the canonical stage-2 decode: B = 2 frames x 222,784 valid points (stage
 # 1 decodes one copy, 222,784 rows); the stage inputs the decoder gives its
 # kernels: the first stage's float32 features (64 + 2 uv), the hidden
@@ -1844,7 +1845,9 @@ DECODER_ROWS = 445_568
 DECODER_CASES = (("first stage, bf16 decoder", 66, "float32", "bfloat16"),
                  ("hidden stage, bf16 decoder", 128, "bfloat16", "bfloat16"),
                  ("skip stage, bf16 decoder", 194, "bfloat16", "bfloat16"),
-                 ("hidden stage, f32 decoder", 128, "float32", "float32"))
+                 ("first stage, f32 decoder", 66, "float32", "float32"),
+                 ("hidden stage, f32 decoder", 128, "float32", "float32"),
+                 ("skip stage, f32 decoder", 194, "float32", "float32"))
 # the other widths the JAX decoder takes (--hsize H: the stage inputs 66, H
 # and 66 + H; --c_geom 63: an odd first and skip stage, 65 and 193 at
 # H = 128), held at the same rows and limits and timed: (label, C, x dtype,
@@ -1871,9 +1874,17 @@ DFWD_EPILOGUE_FLOPS, DBWD_FLOPS = 6, 5
 # the decoder kernels against their plain versions on the same inputs:
 # H-dstat's Gram and column sums within this share of their largest
 # |entry| (the plain version sums in float64, the kernel in float32);
-# H-dfwd within one
-# bfloat16 ulp of the output's largest magnitude (the product's sum order
-# can flip a rounding), at float32 within this share of it; H-dbwd's du
+# H-dfwd in bfloat16 exactly as the plain version, but for the one step
+# the kernel takes in another way: its float32 sum of x Wp runs in another
+# order, which can flip a rounding after it. Each z equals act(v) for v the
+# plain version's v = u + bp (u its product rounded to bfloat16), or v
+# from u's bfloat16 neighbour on either side, or v's own neighbour on
+# either side (a product so cancelled that the sum order moves it by more
+# than its own ulp but less than one of v). Everything after the product is
+# the plain version's arithmetic, bit for bit; a one-ulp flip of u can move
+# z by more than one ulp of z, through a bias that cancels much of x Wp (an
+# eval-mode decode) and softplus's roundings. At float32 within this share
+# of max|z|; H-dbwd's du
 # within one ulp of each element, its bias gradient within this share of
 # the largest column's sum of |du|. H-dstat and H-dbwd are bit-identical
 # across runs.
@@ -1903,6 +1914,39 @@ def _ulp(t):
 
     a = t.float().abs().clamp_min(2.0**-126)
     return torch.exp2(torch.floor(torch.log2(a)) - (7 if t.dtype == torch.bfloat16 else 23))
+
+
+def _bf16_next(u, up):
+    """The bfloat16 next to each element of u toward +inf (up) or -inf, on
+    the bits (a zero steps to the smallest subnormal of the other sign)."""
+    import torch
+
+    b = u.view(torch.int16).to(torch.int32) & 0xFFFF
+    neg, mag = b >= 0x8000, b & 0x7FFF
+    grow = neg != up   # the step away from zero
+    nb = torch.where(grow, b + 1, torch.where(mag > 0, b - 1, (b ^ 0x8000) + 1))
+    return torch.where(nb >= 0x8000, nb - 0x10000, nb).to(torch.int16).view(torch.bfloat16)
+
+
+def _bf16_fwd_flips(x, Wp, bp, act, z):
+    """bfloat16 H-dfwd's output z against the plain version's arithmetic ->
+    (elements that match act(v) for no v among the plain pre-activation, v
+    from the rounded product's two bfloat16 neighbours and v's own two,
+    elements that match only one of the four: a flipped rounding)."""
+    import torch
+
+    from gaussianavatar_torch.ops import decoder_stage as ds
+
+    a = torch.relu if act == "relu" else ds.softplus
+    u = (x.to(Wp.dtype).float() @ Wp.float()).to(Wp.dtype)
+    v = u + bp
+    z0 = a(v)
+    same = (z == z0) | (torch.isnan(z) & torch.isnan(z0))
+    near = torch.zeros_like(same)
+    for w in (_bf16_next(u, True) + bp, _bf16_next(u, False) + bp, _bf16_next(v, True),
+              _bf16_next(v, False)):
+        near |= z == a(w)
+    return int((~(same | near)).sum()), int((~same & near).sum())
 
 
 def _decoder_case(C, x_dtype, cdt, device, R=DECODER_ROWS, H=128):
@@ -1952,15 +1996,21 @@ def _hold_fwd(label, x, Wp, bp, act):
     z = ds.stage_fwd(x, Wp, bp, act)
     zp = ds.stage_fwd_plain(x, Wp, bp, act)
     d = (z.float() - zp.float()).abs()
-    big = zp.float().abs().max()
-    bf16 = Wp.dtype == torch.bfloat16
-    tol = float(_ulp(big.to(Wp.dtype))) if bf16 else TOL_DFWD_F32 * float(big)
+    big = float(zp.float().abs().max())
     err, moved = float(d.max()), float((d > 0).float().mean())
-    print(f"  {label}, H-dfwd ({x.shape[1]} -> {Wp.shape[1]}, {act}, {str(Wp.dtype)[6:]}): "
-          f"max|d z| {err:.3e} (tol {tol:.3e}: " + ("one bf16 ulp of" if bf16 else
-                                            f"{TOL_DFWD_F32:g} x") + f" max|z| {float(big):.3g}), "
-          f"{100 * moved:.3f}% of elements differ")
-    if not err <= tol or not bool(torch.isfinite(z).all()):
+    line = (f"  {label}, H-dfwd ({x.shape[1]} -> {Wp.shape[1]}, {act}, {str(Wp.dtype)[6:]}): "
+            f"max|d z| {err:.3e} (max|z| {big:.3g}), {100 * moved:.3f}% of elements differ")
+    if Wp.dtype == torch.bfloat16:
+        bad, flipped = _bf16_fwd_flips(x, Wp, bp, act, z)
+        print(line + f"; {flipped} of them by a flipped rounding of x Wp or x Wp + bp, {bad} "
+              f"otherwise (tol 0); max|d z| "
+              f"{err / float(_ulp(torch.tensor(big).to(Wp.dtype))):.2f} bf16 ulps of max|z|")
+        ok = bad == 0
+    else:
+        print(line + f" (tol {TOL_DFWD_F32 * big:.3e}: {TOL_DFWD_F32:g} x max|z|; max|x Wp| "
+              f"{float((x @ Wp).abs().max()):.3g})")
+        ok = err <= TOL_DFWD_F32 * big
+    if not ok or not bool(torch.isfinite(z).all()):
         _fail(f"H-dfwd disagrees with its plain version ({label})")
     return err
 
@@ -1990,23 +2040,28 @@ def _hold_bwd(label, g, z, act):
     return float(d.max())
 
 
-def _decoder_bounds(R, C, H, x_esize, c_esize, tensor_cores):
+def _decoder_bounds(R, C, H, x_esize, c_esize):
     """Least times (ms, bound_by) of the three kernels on one stage of
     input width C and output width H: the bytes (each input read once, each
     output written once) over HBM bandwidth against the operations over the
-    peak of their type. H-dstat's least work is the Gram's distinct entries,
-    R C (C + 1) operations (a product and an addition each) on x's type:
-    H-dstat's products run on the tensor cores only for bfloat16 input."""
-    peak = BF16_FLOP_PER_S if tensor_cores else FP32_FLOP_PER_S
-    stat_peak = BF16_FLOP_PER_S if x_esize == 2 else FP32_FLOP_PER_S
+    peak of their type. A product on bfloat16 operands runs at the bfloat16
+    tensor-core rate; a float32-accurate product takes three TF32 products
+    (3xTF32) at the TF32 rate, the least such work on this card (one float32
+    FFMA at 67 TFLOP/s is slower). H-dstat's least work is the Gram's
+    distinct entries, R C (C + 1) operations (a product and an addition
+    each), on x's type; H-dfwd's is 2 R C H on the compute type plus its
+    epilogue in float32."""
+    def products(ops, esize):
+        return (ops / BF16_FLOP_PER_S if esize == 2 else 3 * ops / TF32_FLOP_PER_S) * 1e3
 
     def bound(bytes_, t_ops):
         t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
         return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
-    stat = bound(R * C * x_esize + (C * C + C) * 4, R * C * (C + 1) / stat_peak * 1e3)
+    stat = bound(R * C * x_esize + (C * C + C) * 4, products(R * C * (C + 1), x_esize))
     fwd = bound(R * C * x_esize + (C * H + H) * c_esize + R * H * c_esize,
-                2 * R * C * H / peak * 1e3 + DFWD_EPILOGUE_FLOPS * R * H / FP32_FLOP_PER_S * 1e3)
+                products(2 * R * C * H, c_esize)
+                + DFWD_EPILOGUE_FLOPS * R * H / FP32_FLOP_PER_S * 1e3)
     bwd = bound(3 * R * H * c_esize + H * 4, DBWD_FLOPS * R * H / FP32_FLOP_PER_S * 1e3)
     return {"decoder_stats": stat, "decoder_stage_fwd": fwd, "decoder_stage_bwd": bwd}
 
@@ -2048,8 +2103,7 @@ def _decoder_random_holds(device, card):
                                   _time_ms(lambda: ds.stage_bwd_plain(cot, z, "softplus"),
                                            reps=5, warmup=1), None),
         }
-        bounds = _decoder_bounds(DECODER_ROWS, C, H, x.element_size(), Wp.element_size(),
-                                 cdt == "bfloat16")
+        bounds = _decoder_bounds(DECODER_ROWS, C, H, x.element_size(), Wp.element_size())
         for name, (ms, plain_ms, lib_ms) in t.items():
             b_ms, b_by = bounds[name]
             lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
@@ -2066,11 +2120,11 @@ def _decoder_random_holds(device, card):
 
 
 class _DecoderRecorder:
-    """While active, the decoder kernels' wrappers keep their last training
-    call's inputs for each wrapper, width and dtype (H-dfwd's with autograd
-    on; they launch as before). The debug dump's eval-mode decode, which the JAX
-    loop's cadence puts after a run's last group, is not what the holds of
-    "the last step" read."""
+    """While active, the decoder kernels' wrappers keep their last call's
+    inputs for each wrapper, width, dtype and mode (they launch as before):
+    the last training step's, and H-dfwd's of the last eval-mode decode
+    (autograd off: the debug dump, which the JAX loop's cadence puts after a
+    run's last group, and its running statistics folded into Wp and bp)."""
 
     NAMES = ("column_stats", "stage_fwd", "stage_bwd")
 
@@ -2088,9 +2142,9 @@ class _DecoderRecorder:
 
             def call(*a):
                 # H-dbwd runs inside a backward, where autograd is off
-                if name != "stage_fwd" or torch.is_grad_enabled():
-                    self.rec[(name, a[0].shape[1], a[0].dtype)] = tuple(
-                        v.detach() if torch.is_tensor(v) else v for v in a)
+                mode = "eval" if name == "stage_fwd" and not torch.is_grad_enabled() else "train"
+                self.rec[(name, a[0].shape[1], a[0].dtype, mode)] = tuple(
+                    v.detach() if torch.is_tensor(v) else v for v in a)
                 return real(*a)
             return call
 
@@ -2107,11 +2161,13 @@ def _hold_recorded(rec, label):
     """Each recorded decoder call's inputs through its kernel and its plain
     version -> {kernel: max |error|}."""
     errs = {k: 0.0 for k in DECODER_KERNELS}
-    for (name, _, _), args in sorted(rec.items(), key=lambda kv: (kv[0][0], kv[0][1])):
+    for (name, _, _, mode), args in sorted(rec.items(), key=lambda kv: (kv[0][0], kv[0][1],
+                                                                         kv[0][3])):
         if name == "column_stats":
             errs["decoder_stats"] = max(errs["decoder_stats"], _hold_stats(label, *args))
         elif name == "stage_fwd":
-            errs["decoder_stage_fwd"] = max(errs["decoder_stage_fwd"], _hold_fwd(label, *args))
+            what = label if mode == "train" else f"{label} (the eval-mode decode after it)"
+            errs["decoder_stage_fwd"] = max(errs["decoder_stage_fwd"], _hold_fwd(what, *args))
         else:
             errs["decoder_stage_bwd"] = max(errs["decoder_stage_bwd"], _hold_bwd(label, *args))
     return errs
@@ -2387,7 +2443,7 @@ def phase_fused_decoder(device, card, work, train_stats):
 # phase 12: --steps_per_dispatch. The campaign's data (48 frames of 512^2,
 # 24 batches an epoch: three full groups of 8), two epochs, S=8 against S=1
 # from one seed; stage 2 on (a)'s save for 24 steps (one epoch, 3 groups).
-SPD, SPD_FRAMES, SPD_STEPS, SPD_STEPS_S2 = 8, 48, 48, 24
+SPD, SPD_FRAMES, SPD_STEPS, SPD_STEPS_S2, SPD_STEPS_F32 = 8, 48, 48, 24, 24
 # the group whose static buffers a control run leaves unrefreshed (a
 # replay: the first group runs eagerly and captures); the gate flip's is
 # the first replay after the flip
@@ -2606,7 +2662,8 @@ def phase_dispatch(device, card, work):
     """Phase 12: --steps_per_dispatch 8 (a CUDA graph of 8 steps, replayed)
     against --steps_per_dispatch 1, each beside a control whose replay keeps
     one group's static batch buffers stale: (a) stage 1 on the campaign's
-    48 frames, reference and fused decoders, 48 steps; (b) stage 2 on (a)'s
+    48 frames, reference and fused decoders, 48 steps, and the fused
+    decoder at float32 (S=8 alone, 24 steps); (b) stage 2 on (a)'s
     save, 24 steps; (c) a gate flip inside the run (LPIPS from epoch 2, AIAP
     on), two captures; (d) (a)-(c) again under torch's deterministic
     algorithms, exact. -> (H-fwd's error, H-bwd's error, {kernel: launches}
@@ -2663,6 +2720,13 @@ def phase_dispatch(device, card, work):
               f"({got[1]['rate'] / got[0]['rate']:.2f}x), peak memory {got[1]['peak_gb']:.2f} "
               f"against {got[0]['peak_gb']:.2f} GiB, capture {got[1]['captures'][0]:.3f} s, "
               f"on {card}")
+    # the float32 fused decoder replayed beside the bf16 one: three groups
+    # (eager with the capture, two replays), launches exact
+    got = run("stage 1 fused, f32 decoder", s1(["--fused_decoder", "1", "--bf16_decoder", "0"]),
+              "stage_1_fused_f32_s8", SPD, SPD_STEPS_F32, fused=True)
+    print(f"  stage 1 fused, f32 decoder: S=8 {got['rate']:.2f} it/s (group 3) against the bf16 "
+          f"decoder's {runs['stage 1 fused'][1]['rate']:.2f} (groups 3-6), peak memory "
+          f"{got['peak_gb']:.2f} GiB, on {card}")
     fwd_err, bwd_err, _ = _hold_train_batch(runs["stage 1"][1]["kernels"], card,
                                             "graph-replayed batch", timed=False)
     _pair_count_cost(runs["stage 1"][0]["kernels"], card)

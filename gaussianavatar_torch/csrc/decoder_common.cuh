@@ -96,15 +96,17 @@ __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-// Lands tile `tile` of x (rows [tile * 64, min(R, tile * 64 + 64))) in
+// Lands tile `tile` of x (rows [tile * n, min(R, tile * n + n)) for n =
+// tile_rows, 64 by default) in
 // `dst`, its bytes counted on `bar`; one thread calls it, after every
 // thread that read `dst` before is done with it. The short tail of the last
 // tile (< 16 bytes) is copied by the calling thread itself, before it
 // arrives.
 __device__ __forceinline__ void land_tile(const unsigned char* __restrict__ x, size_t row_bytes,
-                                          int R, int tile, unsigned char* dst, uint64_t* bar) {
-  const int r0 = tile * kTileRows;
-  const int rows = min(kTileRows, R - r0);
+                                          int R, int tile, unsigned char* dst, uint64_t* bar,
+                                          int tile_rows = kTileRows) {
+  const int r0 = tile * tile_rows;
+  const int rows = min(tile_rows, R - r0);
   const size_t bytes = static_cast<size_t>(rows) * row_bytes;
   const size_t bulk = bytes & ~static_cast<size_t>(15);
   const unsigned char* src = x + static_cast<size_t>(r0) * row_bytes;
@@ -123,12 +125,17 @@ __device__ __forceinline__ uint64_t desc_b128(const void* p) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
-// byte offset of K-major element (row n, k) in a 128-byte-swizzle panel
-// stack of `rows` rows (64 K values a panel)
+// byte offset of K-major byte kb of row n in a 128-byte-swizzle panel stack
+// of `rows` rows (128 bytes of K a panel: 64 bfloat16 or 32 tf32 values)
+__device__ __forceinline__ uint32_t b128_at(int n, int kb, int rows) {
+  const int panel = kb >> 7, kk = kb & 127;
+  return static_cast<uint32_t>(panel) * rows * 128 + n * 128 + (((kk >> 4) ^ (n & 7)) << 4) +
+         (kk & 15);
+}
+
+// the same for bfloat16 element (row n, k)
 __device__ __forceinline__ uint32_t b128_offset(int n, int k, int rows) {
-  const int panel = k >> 6, kk = k & 63;
-  return static_cast<uint32_t>(panel) * rows * 128 + n * 128 + ((((kk >> 3) ^ (n & 7))) << 4) +
-         ((kk & 7) << 1);
+  return b128_at(n, 2 * k, rows);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -145,9 +152,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // keeps the compiler from moving accesses of the accumulators across the
 // asynchronous wgmma
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // the same for A fragments held in registers, which wgmma reads until its
@@ -200,7 +208,126 @@ __device__ __forceinline__ void wgmma_ss_64x64(float (&d)[32], uint64_t desc_a, 
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
-// The accumulator's layout (m64nNk16, float32): warp w of the warpgroup
+// ---- 3xTF32 ------------------------------------------------------------------
+//
+// A float32 product at float32 accuracy on the tensor cores: each operand
+// a = hi + lo with hi = tf32(a) and lo = tf32(a - hi) (rounded to nearest,
+// ties away from zero, as cvt.rna.tf32.f32 rounds; a - hi is exact in
+// float32), and a b = hi hi + hi lo + lo hi; the dropped lo lo is about
+// 2^-22 of a b. TF32 products are exact and sum in float32. One TF32
+// product alone keeps 11 bits of each operand (about 3 decimal digits),
+// which the float32 contract refuses.
+
+// the rounding on the bits: adding half a tf32 ulp to the magnitude and
+// clearing the 13 low bits rounds it to nearest, ties away (a carry into
+// the exponent is the next binade, or inf past the largest float); a NaN
+// becomes the quiet NaN, whose tf32 bits stay a NaN
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  const uint32_t b = __float_as_uint(v);
+  return (b & 0x7FFFFFFFu) > 0x7F800000u ? 0x7FC00000u : (b + 0x1000u) & 0xFFFFE000u;
+}
+
+// v = hi + lo; where hi is not finite (inf or NaN, or a value that rounds
+// past the largest float), lo is 0
+__device__ __forceinline__ void tf32_split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = (hi & 0x7F800000u) != 0x7F800000u
+           ? (__float_as_uint(v - __uint_as_float(hi)) + 0x1000u) & 0xFFFFE000u
+           : 0u;
+}
+
+#define GA_D4 "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+#define GA_D8 GA_D4, "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+#define GA_D16                                                                             \
+  GA_D8, "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),       \
+      "+f"(d[14]), "+f"(d[15])
+#define GA_R4 "{%0, %1, %2, %3}"
+#define GA_R8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define GA_R16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// D (64 x N, float32) (+)= A (64 x 8, tf32, both operands from shared
+// memory, K-major) x B (8 x N); d holds N / 2 accumulators a thread (of 36)
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[36], uint64_t desc_a, uint64_t desc_b,
+                                              int accumulate);
+template <>
+__device__ __forceinline__ void wgmma_ss_tf32<72>(float (&d)[36], uint64_t desc_a,
+                                                  uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35}, %36, %37, p, 1, 1;\n}\n"
+      : GA_WGMMA_D32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_ss_tf32<64>(float (&d)[36], uint64_t desc_a,
+                                                  uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " GA_WGMMA_REGS32
+      ", %32, %33, p, 1, 1;\n}\n"
+      : GA_WGMMA_D32
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_ss_tf32<32>(float (&d)[36], uint64_t desc_a,
+                                                  uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " GA_R16 ", %16, %17, p, 1, 1;\n}\n"
+      : GA_D16
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_ss_tf32<16>(float (&d)[36], uint64_t desc_a,
+                                                  uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 " GA_R8 ", %8, %9, p, 1, 1;\n}\n"
+      : GA_D8
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_ss_tf32<8>(float (&d)[36], uint64_t desc_a,
+                                                 uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 " GA_R4 ", %4, %5, p, 1, 1;\n}\n"
+      : GA_D4
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D (64 x N) (+)= A (64 x 8, tf32 in registers: a[0..3], this warp's 16 rows,
+// a[0] = A[g][q], a[1] = A[g + 8][q], a[2] = A[g][q + 4], a[3] = A[g + 8][q +
+// 4] for lane 4 g + q) x B (8 x N) from shared memory, K-major
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t desc_b, int accumulate);
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " GA_WGMMA_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : GA_WGMMA_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<32>(float (&d)[16], const uint32_t (&a)[4],
+                                                  uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " GA_R16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : GA_D16
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// The accumulator's layout (m64nNk16 and m64nNk8, float32): warp w of the warpgroup
 // holds rows 16 w .. 16 w + 15; lane l holds, for each 8-column group j,
 // d[4 j + 2 h + e] = D[16 w + l / 4 + 8 h][8 j + 2 (l % 4) + e].
 

@@ -16,8 +16,13 @@ the JAX decoder takes (any input width C and hsize H):
     of the pre-activation follow from them and the weights alone.
   - H-dfwd (`stage_fwd`, csrc/decoder_stage_fwd.cu): z = act(x Wp + bp)
     with the folded weights Wp (C, H) and bias bp (H,), any C and H; the
-    product accumulates in float32 (wgmma in bfloat16), the bias and the
-    activation run in its epilogue, and only z is written.
+    product accumulates in float32, the bias and the activation run in its
+    epilogue, and only z is written.
+
+Both run their products on the tensor cores (wgmma): bfloat16 products
+exactly, float32 ones as 3xTF32 (`tf32_split`: each operand a = hi + lo in
+tf32, a b = hi hi + hi lo + lo hi, float32 to about 2^-22 of each term),
+never as one TF32 product, which keeps about 3 decimal digits.
   - H-dbwd (`stage_bwd`, csrc/decoder_stage_bwd.cu): du = g * act'(u)
     rebuilt from z alone (softplus: sigma(u) = 1 - exp(-z); relu: z > 0)
     and, in the same pass, the bias gradient sum_rows du in float32, by a
@@ -54,6 +59,23 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 def _act(act: str, u: torch.Tensor) -> torch.Tensor:
     return torch.relu(u) if act == "relu" else softplus(u)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 x -> (hi, lo), float32 tensors of tf32 values (10 explicit
+    mantissa bits), x = hi + lo to 2^-22 of |x|: the split the float32 forms
+    of H-dfwd and H-dstat make of each operand (csrc/decoder_common.cuh
+    `tf32_split`). hi rounds x to nearest, ties away from zero, on the int32
+    view, as cvt.rna.tf32.f32 does (a NaN stays a NaN); lo rounds x - hi
+    (exact in float32) the same way. Where hi is not finite (inf, NaN, or a
+    value that rounds past the largest float) lo is 0."""
+    def rna(v):
+        r = ((v.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+        return torch.where(torch.isnan(v), v, r)
+
+    hi = rna(x)
+    lo = torch.where(torch.isfinite(hi), rna(x - hi), torch.zeros_like(x))
+    return hi, lo
 
 
 def _check(fn, name, t, dtypes, shape=None):
@@ -130,7 +152,8 @@ def column_stats_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def column_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """As `column_stats_plain`. A CUDA tensor launches H-dstat (built from
     csrc/decoder_stats.cu on first use) on the current stream, with its
-    row splits planned for the device's SM count."""
+    row splits planned for the device's SM count; float32 input's products
+    run as 3xTF32 (`tf32_split`)."""
     if x.device.type == "cpu":
         return column_stats_plain(x)
     from gaussianavatar_torch.utils.cuda_build import load_library
@@ -178,8 +201,8 @@ def stage_fwd_plain(x: torch.Tensor, Wp: torch.Tensor, bp: torch.Tensor,
 def stage_fwd(x: torch.Tensor, Wp: torch.Tensor, bp: torch.Tensor, act: str) -> torch.Tensor:
     """As `stage_fwd_plain`. A CUDA tensor launches H-dfwd (built from
     csrc/decoder_stage_fwd.cu on first use) on the current stream: bfloat16
-    products on the tensor cores (wgmma), float32 ones in FFMA (no TF32);
-    any C and H."""
+    products on the tensor cores (wgmma), float32 ones there as 3xTF32
+    (`tf32_split`); any C and H."""
     if x.device.type == "cpu":
         return stage_fwd_plain(x, Wp, bp, act)
     from gaussianavatar_torch.utils.cuda_build import load_library

@@ -482,6 +482,34 @@ def _ulp(t):
     return torch.exp2(torch.floor(torch.log2(a)) - (7 if t.dtype == torch.bfloat16 else 23))
 
 
+def _bf16_next(u, up):
+    """The bfloat16 next to each element of u toward +inf (up) or -inf, on
+    the bits (a zero steps to the smallest subnormal of the other sign)."""
+    b = u.view(torch.int16).to(torch.int32) & 0xFFFF
+    neg, mag = b >= 0x8000, b & 0x7FFF
+    nb = torch.where(neg != up, b + 1, torch.where(mag > 0, b - 1, (b ^ 0x8000) + 1))
+    return torch.where(nb >= 0x8000, nb - 0x10000, nb).to(torch.int16).view(torch.bfloat16)
+
+
+def _assert_bf16_fwd(x, Wp, bp, act, z):
+    """bfloat16 H-dfwd is the plain version's arithmetic but for its float32
+    sum of x Wp, whose order may flip a rounding after it: each z equals
+    act(v) for v = u + bp (u the plain product rounded to bfloat16), v from
+    u's bfloat16 neighbour on either side, or v's own neighbour on either
+    side (a product so cancelled that the sum order moves it by more than
+    its own ulp but less than one of v)."""
+    from gaussianavatar_torch.ops import decoder_stage as ds
+
+    a = torch.relu if act == "relu" else ds.softplus
+    u = (x.to(Wp.dtype).float() @ Wp.float()).to(Wp.dtype)
+    v = u + bp
+    ok = z == a(v)
+    for w in (_bf16_next(u, True) + bp, _bf16_next(u, False) + bp, _bf16_next(v, True),
+              _bf16_next(v, False)):
+        ok |= z == a(w)
+    assert bool(ok.all())
+
+
 def _decoder_stage_inputs(device, C, x_dtype, cdt, R, H=128):
     """A stage's input (positive, as an activation, except the float32
     first stage's), folded weights, bias and an output cotangent."""
@@ -511,18 +539,35 @@ DECODER_WIDTHS = [(66, _F32, _BF16, 96), (96, _BF16, _BF16, 96), (162, _BF16, _B
 @pytest.mark.parametrize("C,x_dtype,cdt", [
     (66, torch.float32, torch.bfloat16), (128, torch.bfloat16, torch.bfloat16),
     (194, torch.bfloat16, torch.bfloat16), (128, torch.float32, torch.float32),
-    (88, torch.float32, torch.float32)], ids=["in66-bf16", "128-bf16", "194-bf16", "128-f32",
-                                              "in88-f32"])
+    (88, torch.float32, torch.float32), (194, torch.float32, torch.float32)],
+    ids=["in66-bf16", "128-bf16", "194-bf16", "128-f32", "in88-f32", "194-f32"])
 def test_decoder_kernels_match_plain_on_card(cuda_device, C, x_dtype, cdt, act):
     """H-dstat, H-dfwd and H-dbwd against their plain versions on one
     stage's inputs (5,003 rows: a ragged last tile). H-dstat: the Gram and
     the column sums within 1e-5 of their largest |entry| (float32 sums in
-    another order), two runs bit-identical. H-dfwd: bfloat16 within one
-    ulp of the output's largest magnitude (the product's sum order may flip
-    a rounding), float32 within 1e-5 of it. H-dbwd: du within one ulp of
-    each element, the bias gradient within 1e-5 of the largest column's
-    sum of |du|, two runs bit-identical. One launch each per call."""
+    another order, float32 input as 3xTF32), two runs bit-identical. H-dfwd:
+    bfloat16 the plain version's arithmetic but for a rounding its sum order
+    may flip (`_assert_bf16_fwd`), float32 (3xTF32) within
+    1e-5 of max|z|. H-dbwd: du within one ulp of each element, the
+    bias gradient within 1e-5 of the largest column's sum of |du|, two runs
+    bit-identical. One launch each per call."""
     _hold_decoder_kernels(*_decoder_stage_inputs(cuda_device, C, x_dtype, cdt, 5003), act)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,H", [(66, 128), (128, 128), (322, 256)])
+def test_decoder_kernels_match_plain_on_card_mixed_magnitude(cuda_device, C, H):
+    """The float32 forms (3xTF32) on rows whose values span 1e-3 to 1e3 in
+    magnitude, with both signs, within one row: H-dstat and H-dfwd hold
+    their float32 limits (as test_decoder_kernels_match_plain_on_card)."""
+    g = torch.Generator().manual_seed(C)
+    R = 5003
+    mag = 10.0 ** (6 * torch.rand(R, C, generator=g) - 3)
+    x = torch.where(torch.rand(R, C, generator=g) < 0.5, -mag, mag)
+    Wp = torch.randn(C, H, generator=g) / C ** 0.5
+    bp = 0.1 * torch.randn(H, generator=g)
+    cot = 1e-2 * torch.randn(R, H, generator=g)
+    _hold_decoder_kernels(*(t.to(cuda_device) for t in (x, Wp, bp, cot)), "softplus")
 
 
 @pytest.mark.gpu
@@ -552,9 +597,10 @@ def _hold_decoder_kernels(x, Wp, bp, cot, act):
     z = ds.stage_fwd(x, Wp, bp, act)
     zp = ds.stage_fwd_plain(x, Wp, bp, act)
     assert z.dtype == cdt and z.shape == (x.shape[0], H)
-    tol = float(_ulp(zp.abs().max())) if cdt == torch.bfloat16 else \
-        1e-5 * float(zp.abs().max())
-    assert float((z.float() - zp.float()).abs().max()) <= tol
+    if cdt == torch.bfloat16:
+        _assert_bf16_fwd(x, Wp, bp, act, z)
+    else:
+        assert float((z.float() - zp.float()).abs().max()) <= 1e-5 * float(zp.abs().max())
 
     du1, db1 = ds.stage_bwd(cot, zp, act)
     du2, db2 = ds.stage_bwd(cot, zp, act)
@@ -593,11 +639,8 @@ def test_decoder_kernel_rules_on_card(cuda_device):
 
     # the widths H-dfwd and H-dbwd refused before F15's repair
     W64, x127, c96 = Wp[:, :64].contiguous(), x[:, :127].contiguous(), cot[:, :96].contiguous()
-    for z, zp in ((ds.stage_fwd(x, W64, bp[:64], "softplus"),
-                   ds.stage_fwd_plain(x, W64, bp[:64], "softplus")),
-                  (ds.stage_fwd(x127, Wp[:127], bp, "softplus"),
-                   ds.stage_fwd_plain(x127, Wp[:127], bp, "softplus"))):
-        assert float((z.float() - zp.float()).abs().max()) <= float(_ulp(zp.abs().max()))
+    for xi, Wi, bi in ((x, W64, bp[:64]), (x127, Wp[:127], bp)):
+        _assert_bf16_fwd(xi, Wi, bi, "softplus", ds.stage_fwd(xi, Wi, bi, "softplus"))
     du, db = ds.stage_bwd(c96, c96, "relu")
     dup, dbp = ds.stage_bwd_plain(c96, c96, "relu")
     assert bool(((du.float() - dup.float()).abs() <= _ulp(dup)).all())
