@@ -10,7 +10,10 @@ Phases, each of which must pass (the script exits nonzero otherwise):
   2. H-fwd against its plain PyTorch version on a random scene at the render
      shapes (115k gaussians per view, 4 views of 1024^2, 32px tiles, M=4),
      uncapped and with random per-tile caps;
-  3. the stage-1 novel-pose render (engine/inference.make_renderer) of a
+  3. the initial state of a canonical-width stage-2 network at `--init
+     flax` built on the card from seed 0 against the CPU build, bit for
+     bit (models/init.py); then the stage-1 novel-pose render
+     (engine/inference.make_renderer) of a
      synthetic avatar at the canonical widths (query posmap 512, bf16
      decoder, random weights from a seed) on 32 poses, 4 per call at
      1024^2, with the kernel's launch count read around that run; then one
@@ -64,7 +67,11 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      and held against their plain versions on the last batch, it/s and
      peak memory beside phase 5's), then `grid_knn` over the 222,784 valid
      query points on the card against `host_knn` (both timed; neighbour
-     sets and distances where the cell contract holds); (b) one 1024^2
+     sets and distances where the cell contract holds), and 30 steps with
+     the need table and the adaptive footprint (`--ragged 1 --auto_cascade
+     1`: H-fwd once per step and once per probe batch, H-bwd once per
+     step, both held against their plain versions on the last batch, its
+     caps included); (b) one 1024^2
      view of 20,000 gaussians at SH degree 3 through `ops/rasterize.
      rasterize` (H-fwd once, held against the plain blend; H-bwd once; the
      coefficients' gradient against the CPU's plain path); (c) 5 steps
@@ -361,7 +368,8 @@ def phase_random_scene(device):
 def make_slice(device, decoder_impl="ref"):
     """The main path's setup: a synthetic avatar at the canonical widths
     (query posmap 512, input posmap 128, c_geom 64, hsize 128, bf16 decoder,
-    the reference or the fused one, random weights from seed 0), its
+    the reference or the fused one, random weights: torch's initialisation,
+    the CLIs' default, and geo_feature from seed 0), its
     stage-1 renderer from `make_renderer`,
     and batches of 4 of 32 poses from `synthetic_pose`, 1024^2, white
     background, a camera that frames the body."""
@@ -388,7 +396,6 @@ def make_slice(device, decoder_impl="ref"):
     assets = build_avatar_assets(body, uv.verts, uv.uvs, uv.faces_v, uv.faces_vt,
                                  np.zeros(J * 3, np.float32), np.zeros(4, np.float32),
                                  query_res=cfg.model.query_posmap_size, device=device)
-    torch.manual_seed(0)  # nn.Linear / nn.Conv2d default init draws from it
     poses = np.stack([synthetic_pose(body, t / n_poses) for t in range(n_poses)])
     net = AvatarNet(
         num_frames=n_poses, pose_dim=J * 3, c_geom=cfg.net.c_geom,
@@ -422,13 +429,48 @@ def make_slice(device, decoder_impl="ref"):
                            iteration=10)
 
 
+def _init_matches_cpu(device):
+    """The initial state of a canonical-width stage-2 AvatarNet (the POP
+    decoder, the 'conv' smoother, the pose encoder) at `--init flax`, built
+    for the card from seed 0 against the CPU build from seed 0: equal bit
+    for bit (every draw
+    is made on the CPU, models/init.py), and flax's initialisation (biases
+    zero, kernels within 2 sigma of lecun_normal)."""
+    import torch
+
+    from gaussianavatar_torch.models.avatar import AvatarNet
+    from gaussianavatar_torch.models.init import TRUNC_STD, flax_fan_in
+
+    make = lambda dev: AvatarNet(num_frames=8, pose_dim=72, train_stage=2, init="flax",
+                                 generator=torch.Generator().manual_seed(0), device=dev)
+    t0 = time.perf_counter()
+    on_card, on_cpu = make(device), make("cpu")
+    sd_card, sd_cpu = on_card.state_dict(), on_cpu.state_dict()
+    differ = [k for k in sd_cpu if not torch.equal(sd_card[k].cpu(), sd_cpu[k])]
+    if differ or sd_card.keys() != sd_cpu.keys():
+        _fail(f"initial state on {device} differs from the CPU build: {differ[:5]}")
+    kernels = 0
+    for name, m in on_cpu.named_modules():
+        if isinstance(m, (torch.nn.Linear, torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+            kernels += 1
+            if m.bias is not None and m.bias.any():
+                _fail(f"initial state: {name}.bias is not zero")
+            if m.weight.abs().max() > 2.0001 * flax_fan_in(m) ** -0.5 / TRUNC_STD:
+                _fail(f"initial state: {name}.weight beyond flax's truncation")
+    print(f"  initial state (seed 0, stage 2, {len(sd_cpu)} tensors, {kernels} kernels): "
+          f"{device} == cpu bit for bit, biases zero, kernels truncated at 2 sigma "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
 def phase_slice(device, card):
-    """The stage-1 novel-pose render of a canonical-width avatar."""
+    """The initial state on the card against the CPU's, then the stage-1
+    novel-pose render of a canonical-width avatar."""
     import torch
 
     from gaussianavatar_torch.ops import rasterize_tile
     from gaussianavatar_torch.utils.cuda_build import LAUNCHES
 
+    _init_matches_cpu(device)
     s = make_slice(device)
     render, batch_for, it = s.render, s.batch_for, s.iteration
     H, W, B, n_poses = s.H, s.W, s.B, s.n_poses
@@ -661,12 +703,9 @@ def phase_rest_of_path(card, work):
     resumed_steps = 2 * 4
     _, resume_counts, wall = _run_counted(
         train_cli.main, _train_argv(data, out) + ["--checkpoint_epochs", "8", "--epochs", "10"])
+    probes = _check_train_launches("the resumed run", resume_counts, resumed_steps, out)
     print(f"  kernel launches in the resumed run: {resume_counts} ({resumed_steps} steps, "
-          f"{wall:.1f} s in all)")
-    for name in TRAIN_KERNELS:
-        if resume_counts[name] != resumed_steps:
-            _fail(f"the resumed run launched {name} {resume_counts[name]} times, not once per "
-                  "step")
+          f"{probes} probe batches, {wall:.1f} s in all)")
     after = [json.loads(line) for line in open(metrics) if '"step"' in line][len(before):]
     end = torch.load(os.path.join(ckpt.ckpt_dir(out, 10), ckpt.TRAIN_NAME), weights_only=True)
     last, first = before[-1], after[0]
@@ -843,10 +882,9 @@ def phase_train(device, card, work):
         wall = time.perf_counter() - t0
         counts = dict(LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  kernel launches in the training run: {counts} ({TRAIN_STEPS} steps)")
-    for name in TRAIN_KERNELS:
-        if counts[name] != TRAIN_STEPS:
-            _fail(f"the training run launched {name} {counts[name]} times, not once per step")
+    probes = _check_train_launches("the training run", counts, TRAIN_STEPS, out)
+    print(f"  kernel launches in the training run: {counts} ({TRAIN_STEPS} steps, {probes} "
+          f"probe batches: {_metrics(out)[1].get('ragged_need_bank')})")
 
     steps, rate, s0 = _train_rate(out, TRAIN_STEPS)
     first, last = steps[min(steps)]["total"], steps[TRAIN_STEPS]["total"]
@@ -904,10 +942,9 @@ def phase_stage2(device, card, work):
     with _KernelRecorder() as recorder:
         _, counts, wall = _run_counted(train_cli.main, argv)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  kernel launches in the stage-2 training run: {counts} ({TRAIN_STEPS} steps)")
-    for name in TRAIN_KERNELS:
-        if counts[name] != TRAIN_STEPS:
-            _fail(f"the stage-2 run launched {name} {counts[name]} times, not once per step")
+    probes = _check_train_launches("the stage-2 run", counts, TRAIN_STEPS, out)
+    print(f"  kernel launches in the stage-2 training run: {counts} ({TRAIN_STEPS} steps, "
+          f"{probes} probe batches)")
     steps, rate, s0 = _train_rate(out, TRAIN_STEPS)
     last = steps[TRAIN_STEPS]
     print(f"  stage-2 training: {rate:.2f} it/s steady state (steps {s0}-{TRAIN_STEPS}), loss "
@@ -1054,10 +1091,9 @@ def phase_pipeline(device, card, work, train_stats):
     with _KernelRecorder() as recorder:
         _, counts, wall = _run_counted(train_cli.main, argv)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  kernel launches in the LPIPS training run: {counts} ({TRAIN_STEPS} steps)")
-    for name in TRAIN_KERNELS:
-        if counts[name] != TRAIN_STEPS:
-            _fail(f"the LPIPS run launched {name} {counts[name]} times, not once per step")
+    probes = _check_train_launches("the LPIPS run", counts, TRAIN_STEPS, out)
+    print(f"  kernel launches in the LPIPS training run: {counts} ({TRAIN_STEPS} steps, "
+          f"{probes} probe batches)")
     records = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
     events = {r["event"]: r["value"] for r in records if "event" in r}
     steps, rate, s0 = _train_rate(out, TRAIN_STEPS)
@@ -1306,11 +1342,9 @@ def phase_train_terms(device, card, work, train_stats):
     with _KernelRecorder() as recorder:
         _, counts, wall = _run_counted(train_cli.main, argv)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    probes = _check_train_launches("the AIAP run", counts, TRAIN_STEPS, out)
     print(f"  kernel launches in the AIAP + positional-encoding run: {counts} "
-          f"({TRAIN_STEPS} steps)")
-    for name in TRAIN_KERNELS:
-        if counts[name] != TRAIN_STEPS:
-            _fail(f"the AIAP run launched {name} {counts[name]} times, not once per step")
+          f"({TRAIN_STEPS} steps, {probes} probe batches)")
     add(counts)
     steps, rate, s0 = _train_rate(out, TRAIN_STEPS)
     if not all("aiap" in r and math.isfinite(r["aiap"]) and math.isfinite(r["total"])
@@ -1334,6 +1368,26 @@ def phase_train_terms(device, card, work, train_stats):
     cfg = Config.load(os.path.join(out1, "cfg_args.json"))
     assets = setup_avatar(cfg, device=device).assets
     knn_ms, knn_host_s = _knn_check(assets.query_points[:assets.num_valid], card)
+    # the need table and the adaptive footprint (engine/need_table.py)
+    out_need = os.path.join(work, "out_need")
+    with _KernelRecorder() as recorder:
+        _, counts, wall = _run_counted(train_cli.main, _train_argv(data, out_need) + [
+            "--ragged", "1", "--auto_cascade", "1", "--max_steps", str(TRAIN_STEPS)])
+    probes = _check_train_launches("the need-table run", counts, TRAIN_STEPS, out_need)
+    need_steps, events = _metrics(out_need)
+    if not probes or "ragged_need_bank" not in events \
+            or not all(math.isfinite(r["total"]) for r in need_steps.values()):
+        _fail("the need-table run built no table or logged a loss that is not finite")
+    first, last = need_steps[min(need_steps)], need_steps[TRAIN_STEPS]
+    print(f"  need table: {events['ragged_need_bank']}, footprint "
+          f"{events.get('footprint_adapt', 'M 9 (kept)')}, {probes} probe batches, launches "
+          f"{counts}, loss {first['total']:.5f} -> {last['total']:.5f}, raster overflow "
+          f"{last['raster_overflow']:.0f} pairs at step {TRAIN_STEPS}, {wall:.1f} s in all")
+    add(counts)
+    fwd_err, bwd_err, _ = _hold_train_batch(recorder.rec, card, "need-table train batch",
+                                            timed=False)
+    errs_fwd.append(fwd_err)
+    errs_bwd.append(bwd_err)
     print(f"  (a) in {time.perf_counter() - t_phase:.1f} s")
 
     # (b) the SH render of one 1024^2 view, its gradient to the coefficients
@@ -1384,8 +1438,8 @@ def phase_train_terms(device, card, work, train_stats):
     print(f"  profiled run: {n_prof} steps, launches {counts}, {wall:.1f} s in all; "
           f"{len(text) / 2**20:.1f} MB trace, events named: {found}")
     del text
-    if counts["blend_fwd"] != n_prof or counts["blend_bwd"] != n_prof \
-            or any(n < n_prof for n in found.values()):
+    _check_train_launches("the profiled run", counts, n_prof, os.path.join(work, "out_prof"))
+    if any(n < n_prof for n in found.values()):
         _fail("the profiled run's trace does not name train::step and both kernels per step")
     add(counts)
     print(f"  (c) in {time.perf_counter() - t_phase:.1f} s")
@@ -1439,7 +1493,16 @@ DP_STEPS, DP2_STEPS = 10, 3
 #    separate them there, and 1e-2 is a sanity bound only;
 #  - stage 1's 10-step trajectory at the f32 decoder, the largest
 #    difference over the steps, against ranks that skip the gradient
-#    all-reduce; a second --dp 1 run's spread is printed beside it. At
+#    all-reduce. The held pair (--dp 1 and --dp 2) runs under torch's
+#    deterministic algorithms (in the ranks too): with the atomics of
+#    index_add_ a second --dp 1 run left the first by 3.64e-2 over the 10
+#    steps from flax's initialisation (`--init flax`), over the limit,
+#    while the sound --dp 2 run read 1.44e-2 and the control 0.419; from
+#    torch's (the default) 3.87e-3, 8.93e-4 and 0.227. The control and a
+#    second --dp 1 run run in the default mode, the one users train in;
+#    the second run is printed beside the held reading (the default
+#    mode's own spread), not held. The sound readings over seeds 0-2 are
+#    scripts/torch_dp_trajectory.py's (PERF.md). At
 #    the bf16 default the trajectory is printed only: the bf16 rounding of
 #    the BatchNorm-absorbed biases' noise (true gradient 0, Adam steps of
 #    +-lr) moves a sound run within a few x of the control.
@@ -1472,6 +1535,26 @@ def _metrics(out):
     steps = {r["step"]: r for r in records if "step" in r}
     events = {r["event"]: r["value"] for r in records if "event" in r}
     return steps, events
+
+
+def _probes(out, ranks=1):
+    """The need table's probe batches in the training run that last wrote
+    `out`/metrics.jsonl (engine/need_table.py, on by default above 256
+    queries; every rank probes every frame): each launches H-fwd once and
+    decodes once in eval mode."""
+    return ranks * int(_metrics(out)[1].get("need_table_probes", 0))
+
+
+def _check_train_launches(what, counts, steps, out, ranks=1):
+    """Fails unless a training run launched H-bwd once per step, and H-fwd
+    once per step and once per probe batch. -> the probe batches."""
+    probes = _probes(out, ranks)
+    want = {"blend_fwd": ranks * steps + probes, "blend_bwd": ranks * steps}
+    got = {k: (counts or {}).get(k) for k in want}
+    if got != want:
+        _fail(f"{what} launched {got}, not H-fwd once per step and per probe batch "
+              f"({probes}) and H-bwd once per step")
+    return probes
 
 
 class _LossRecorder:
@@ -1512,6 +1595,8 @@ class _LossRecorder:
 # H-bwd inputs and its step losses to `record`, and a control run breaks the
 # named piece of its step.
 RANK_HOOK_ENV = "CHIP_SMOKE_RANK_HOOK"
+# what a rank's hooks keep entered until the rank exits
+_RANK_LIFE = contextlib.ExitStack()
 
 
 def _no_grad_sync():
@@ -1557,6 +1642,11 @@ def _rank_hooks(spec):
 
     if spec["fault"]:
         RANK_FAULTS[spec["fault"]]()
+    # entered for the rank's whole life: the stack lives as long as the
+    # module (a context manager left unreferenced would be closed at once)
+    if spec.get("deterministic"):
+        _RANK_LIFE.enter_context(_deterministic())
+    _RANK_LIFE.enter_context(_network_seed(spec.get("seed", 0)))
     real_train = loop.train
     detach = lambda x: x.detach() if torch.is_tensor(x) else x
 
@@ -1572,10 +1662,36 @@ def _rank_hooks(spec):
     loop.train = train
 
 
-def _dp_run(label, argv_for, out, dp, n_steps, fault=None):
+@contextlib.contextmanager
+def _network_seed(seed):
+    """Training runs draw their initial network from `seed`: torch's
+    default generator is seeded with it just before the network is built
+    (the train CLIs seed it 0 at their start, logging_utils.safe_state, and
+    draw nothing from it before), and `--init flax` draws from a generator
+    seeded with it (engine/setup.setup_avatar)."""
+    import torch
+
+    from gaussianavatar_torch.engine import loop
+
+    real = loop.setup_avatar
+
+    def seeded(*a, **kw):
+        torch.manual_seed(seed)
+        return real(*a, **{**kw, "seed": seed})
+
+    loop.setup_avatar = seeded
+    try:
+        yield
+    finally:
+        loop.setup_avatar = real
+
+
+def _dp_run(label, argv_for, out, dp, n_steps, fault=None, deterministic=False, seed=0):
     """`train` with `argv_for(out)` for n_steps with --dp dp (2: two ranks on
     the one card, recorded through _rank_hooks; `fault` breaks a piece of
-    their step) -> {"totals": the global batch's loss at every step,
+    their step; `deterministic`: under torch's deterministic algorithms,
+    in this process or in every rank; `seed`: the initial network's) ->
+    {"totals": the global batch's loss at every step,
     "launches": summed over the ranks (exact: each rank launches each
     kernel once per step), "steps": metrics.jsonl's, "wall": s, "blend":
     rank 0's last H-fwd and H-bwd inputs (dp 2)}."""
@@ -1585,12 +1701,14 @@ def _dp_run(label, argv_for, out, dp, n_steps, fault=None):
 
     argv = argv_for(out) + ["--dp", str(dp), "--max_steps", str(n_steps)]
     if dp == 1:
-        with _LossRecorder() as losses:
+        with _LossRecorder() as losses, _network_seed(seed), \
+                (_deterministic() if deterministic else contextlib.nullcontext()):
             _, counts, wall = _run_counted(train_cli.main, argv)
         run = {"totals": losses.values(), "blend": None}
     else:
         record = os.path.join(out, "rank0_record.pt")
-        os.environ[RANK_HOOK_ENV] = json.dumps({"record": record, "fault": fault})
+        os.environ[RANK_HOOK_ENV] = json.dumps({"record": record, "fault": fault,
+                                                "deterministic": deterministic, "seed": seed})
         try:
             _, counts, wall = _run_counted(train_cli.main, argv)
         finally:
@@ -1601,10 +1719,7 @@ def _dp_run(label, argv_for, out, dp, n_steps, fault=None):
     what = f"{label} --dp {dp}" + (f" ({fault})" if fault else "")
     print(f"  {what}: launches {summed} (from metrics.jsonl, summed over the ranks), "
           f"{wall:.1f} s in all (setup included)")
-    for name in TRAIN_KERNELS:
-        if summed is None or summed[name] != dp * n_steps:
-            _fail(f"{what} launched {name} {summed and summed[name]} times, not once per "
-                  "rank per step")
+    _check_train_launches(what, summed, n_steps, out, ranks=dp)
     if dp == 1 and counts != summed:
         _fail(f"{what}: the logged launches {summed} are not the counted {counts}")
     if len(run["totals"]) != n_steps or not all(map(math.isfinite, run["totals"])):
@@ -1744,15 +1859,18 @@ def phase_scale_out(device, card, work, train_stats):
     t_phase = time.perf_counter()
     data = os.path.join(work, "data")
     checks, holds = [], []
-    run = lambda label, argv, name, dp, n, fault=None: _dp_run(
-        label, argv, os.path.join(work, f"dp_{name}"), dp, n, fault)
+    run = lambda label, argv, name, dp, n, fault=None, det=False: _dp_run(
+        label, argv, os.path.join(work, f"dp_{name}"), dp, n, fault, det)
     s1 = lambda out: _train_argv(data, out)
     dp1, dp2 = (run("stage 1", s1, f"s1_dp{dp}", dp, DP_STEPS) for dp in (1, 2))
     own_key = run("stage 1", s1, "s1_rank_depth_key", 2, 1, "rank_depth_key")
     s1_f32 = lambda out: s1(out) + ["--bf16_decoder", "0"]
-    dp1_f32, dp1b_f32, dp2_f32 = (run("stage 1 (f32 decoder)", s1_f32, f"s1_f32_{name}", dp,
-                                      DP_STEPS) for name, dp in (("dp1", 1), ("dp1_again", 1),
-                                                                 ("dp2", 2)))
+    # the f32 trajectories (TOL_DP_TRAJ): the held pair under the
+    # deterministic algorithms, the control and a second --dp 1 run in the
+    # default mode
+    dp1_f32, dp2_f32 = (run("stage 1 (f32 decoder, deterministic)", s1_f32, f"s1_f32_{name}",
+                            dp, DP_STEPS, det=True) for name, dp in (("dp1", 1), ("dp2", 2)))
+    dp1b_f32 = run("stage 1 (f32 decoder)", s1_f32, "s1_f32_dp1_again", 1, DP_STEPS)
     no_grad = run("stage 1 (f32 decoder)", s1_f32, "s1_f32_no_grad_sync", 2, DP_STEPS,
                   "no_grad_sync")
     for r in (dp1, dp2, dp1_f32, dp1b_f32, dp2_f32):
@@ -1763,10 +1881,11 @@ def phase_scale_out(device, card, work, train_stats):
     print(f"  stage 1, step 1 vs --dp 1: --dp 2 {first[0]:.2e}, ranks keying depth for their "
           f"own share {first[1]:.2e} (limit {TOL_DP_FIRST:g}); at the f32 decoder "
           f"{_apart(dp1_f32, dp2_f32, 1):.2e}")
-    print(f"  stage 1 (f32 decoder), steps 1-{DP_STEPS} vs --dp 1, largest: --dp 2 "
-          f"{traj[0]:.2e}, a second --dp 1 run {_apart(dp1_f32, dp1b_f32):.2e}, ranks without "
-          f"the gradient all-reduce {traj[1]:.2e} (limit {TOL_DP_TRAJ:g}); at the bf16 default "
-          f"(printed only) --dp 2 {_apart(dp1, dp2):.2e}")
+    print(f"  stage 1 (f32 decoder), steps 1-{DP_STEPS} vs deterministic --dp 1, largest: "
+          f"deterministic --dp 2 {traj[0]:.2e}, ranks without the gradient all-reduce "
+          f"{traj[1]:.2e} (limit {TOL_DP_TRAJ:g}); a second --dp 1 run in the default mode "
+          f"(printed only) {_apart(dp1_f32, dp1b_f32):.2e}; at the bf16 default (printed only) "
+          f"--dp 2 {_apart(dp1, dp2):.2e}")
     checks += [("stage 1 first step", first, TOL_DP_FIRST),
                (f"stage 1 (f32 decoder) steps 1-{DP_STEPS}", traj, TOL_DP_TRAJ)]
     # between the first logged step (the end of the first 4-batch epoch)
@@ -2198,8 +2317,10 @@ def _fused_train(label, argv, out, steps, card, train_stats=None):
     with _DecoderRecorder() as drec:
         _, counts, wall = _run_counted(train_cli.main, argv + ["--max_steps", str(steps)])
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    # each debug dump decodes once more, in eval mode
-    _expect(label, counts, TRAIN_DECODE, steps, evals=_dumps(steps))
+    # each debug dump and each probe batch decodes once more, in eval mode
+    probes = _probes(out)
+    _expect(label, counts, TRAIN_DECODE, steps, evals=_dumps(steps) + probes,
+            blend=(steps + probes, steps))
     steps_m, _ = _metrics(out)
     first, last = min(steps_m), max(steps_m)
     if not all(math.isfinite(r["total"]) for r in steps_m.values()):
@@ -2573,13 +2694,14 @@ def _spd_run(label, argv, out, spd, steps, stale=None, fused=False, captures=Non
     totals = rec.values()
     if len(totals) != steps or not all(map(math.isfinite, totals)):
         _fail(f"{what}: {len(totals)} step losses recorded, or not finite")
+    probes = _probes(out)
     if fused:
-        # one debug dump (after step 1, or after the first group of 8)
-        _expect(what, counts, TRAIN_DECODE, steps, evals=1)
+        # one debug dump (after step 1, or after the first group of 8), and
+        # the probe batches
+        _expect(what, counts, TRAIN_DECODE, steps, evals=1 + probes,
+                blend=(steps + probes, steps))
     else:
-        for name in TRAIN_KERNELS:
-            if counts[name] != steps:
-                _fail(f"{what} launched {name} {counts[name]} times, not once per step")
+        _check_train_launches(what, counts, steps, out)
     n_groups = steps // SPD
     if captures is not None:
         want = (captures, n_groups - captures) if spd > 1 else (0, 0)

@@ -2,9 +2,13 @@
 
 Same dataclasses, flag names, defaults and `cfg_args.json` layout, so a
 `cfg_args.json` written by either package loads in the other. The port
-reads only the raster fields in `PORT_RASTER_FIELDS`; the rest steer TPU
-capacity machinery (static-shape cascades, ragged chunk budgets, retunes,
-gather layouts) that the port's uncapped blend does not need. They, and
+reads only the raster fields in `PORT_RASTER_FIELDS` (the tile size, the
+footprint caps, and the training need table and adaptive footprint that
+`--ragged 1 --auto_cascade 1` turn on, engine/need_table.py; the JAX train
+CLIs turn them on by default above 256 queries, the port's do not); the
+rest steer TPU capacity machinery (static-shape cascades, ragged chunk
+budgets, sampled retunes, gather layouts) that the port's blend does not
+need. They, and
 the few other fields in `PORT_IGNORED_FIELDS`, still parse and still
 round-trip through `cfg_args.json`; `ignored_flags_note` names them all.
 """
@@ -151,7 +155,8 @@ class RasterParams:
 # The raster fields the port reads. Every other RasterParams field steers
 # TPU machinery; `ignored_flags_note` names them once at startup.
 PORT_RASTER_FIELDS = ("tile_size", "max_tiles_per_gaussian",
-                      "render_max_tiles_per_gaussian")
+                      "render_max_tiles_per_gaussian", "ragged", "auto_cascade",
+                      "ragged_margin", "train_footprint_adapt", "train_footprint_eps")
 
 # The other fields the port parses (they round-trip through cfg_args.json)
 # and does not act on, each with the reason.
@@ -167,8 +172,9 @@ def ignored_flags_note() -> str:
     ignored = [f.name for f in dataclasses.fields(RasterParams)
                if f.name not in PORT_RASTER_FIELDS]
     return ("gaussianavatar_torch ignores the TPU-only raster knobs "
-            "(the blend walks every tile's whole depth range, sorts stably, "
-            "and has one kernel): " + ", ".join(ignored) + "; and "
+            "(the blend walks every tile's whole range, or as far as the need table "
+            "allows, sorts stably, probes every frame at a retune, and has one "
+            "kernel): " + ", ".join(ignored) + "; and "
             + "; ".join(f"{k} ({why})" for k, why in PORT_IGNORED_FIELDS.items()))
 
 

@@ -27,9 +27,15 @@ JAX loop, `stage_load` runs after a resume, so a resumed stage-2 run takes
 the decoder, the geometry features and the embeddings from stage 1 again
 (`restore_state`, which says so when it happens).
 
-Left out, because the port does not need them: the TPU capacity machinery
-(need tables and their retunes, chunk budgets, cascade tiers, footprint
-adaptation; the port's blend walks every tile's whole range) and
+With `--ragged 1 --auto_cascade 1` (which the JAX train CLIs turn on by
+default above 256 queries; the port's do not) the run keeps the JAX loop's
+need table and adaptive footprint (engine/need_table.py): every frame's
+per-tile row caps from the saturation probe, built before the first epoch
+and rebuilt after it and at every save epoch, and the footprint M switched
+between 9 and 4 tiles at those retunes, the step rebuilt for the new M.
+
+Left out, because the port does not need them: the rest of the TPU
+capacity machinery (chunk budgets, sampled retunes, cascade tiers) and
 `device_prefetch` (the feeds are a few KB, copied before each dispatch).
 
 Inside a data-parallel group (parallel/mesh.py; `train.py --dp N` starts
@@ -65,6 +71,7 @@ import torch
 from gaussianavatar_torch.config import Config
 from gaussianavatar_torch.data.dataset import BatchLoader
 from gaussianavatar_torch.engine import checkpoint as ckpt
+from gaussianavatar_torch.engine import need_table
 from gaussianavatar_torch.engine.inference import frame_gaussians, load_fixed_inp, require_device
 from gaussianavatar_torch.engine.logging_utils import open_logger
 from gaussianavatar_torch.engine.optim import build_optimizer
@@ -221,6 +228,7 @@ def train(
     lpips_note: Optional[str] = None,
     checkpoint_epochs: Sequence[int] = (),
     lpips_fn=None,
+    init: str = "torch",
 ) -> TrainState:
     """Train an avatar (stage `cfg.model.train_stage`) from `cfg.model.source_path` into
     `cfg.model.model_path`; stops once the iteration reaches `max_steps` if
@@ -235,7 +243,8 @@ def train(
 
     `lpips_fn` (ops/lpips.LPIPS on `device`) adds the gated LPIPS term; the
     `lpips` event of metrics.jsonl reads "active" with it, else
-    `lpips_note` if given, else `lpips_status` of the project."""
+    `lpips_note` if given, else `lpips_status` of the project. `init` is
+    the network's initialisation (engine/setup.setup_avatar)."""
     require_device(device)
     mp, opt = cfg.model, cfg.opt
     grp = mesh.group()
@@ -251,7 +260,7 @@ def train(
         logger.log_event("lpips", "active" if lpips_fn is not None
                          else (lpips_note or lpips_status(mp.project_path)))
 
-        bundle = setup_avatar(cfg, device=device, train=True)
+        bundle = setup_avatar(cfg, device=device, train=True, init=init)
         dataset, net = bundle.frames, bundle.net
         loader = BatchLoader(dataset, mp.batch_size)
         steps_per_epoch = len(loader)
@@ -271,13 +280,24 @@ def train(
         state = TrainState(net, build_optimizer(net, opt, steps_per_epoch, mp.train_stage))
         epoch_start = restore_state(state, mp, checkpoint_epochs)
         mesh.replicate(net, grp)
-        step_args = (net, bundle.body_model, bundle.assets, opt, H, W, bg,
-                     raster_config(cfg, train=True), gt_bank)
-        step_kw = dict(train_stage=mp.train_stage, lpips_fn=lpips_fn, aiap_nn=aiap_nn,
-                       inp_bank=inp_bank)
-        step = make_train_step(*step_args, **step_kw)
+        raster_cfg = raster_config(cfg, train=True)
+        need = None
+        if need_table.enabled(cfg):
+            need = need_table.NeedTable(cfg, bundle, dataset, raster_cfg, H, W,
+                                        drop=DROP_KEYS, inp_bank=inp_bank)
+            need_table.update([need], [logger])
         spd = max(int(opt.steps_per_dispatch), 1)
-        steps = make_train_steps(*step_args, steps=spd, **step_kw) if spd > 1 else None
+
+        def build_steps():
+            """The single step and the S-step dispatch at the current footprint."""
+            args = (net, bundle.body_model, bundle.assets, opt, H, W, bg,
+                    raster_cfg if need is None else need.config(), gt_bank)
+            kw = dict(train_stage=mp.train_stage, lpips_fn=lpips_fn, aiap_nn=aiap_nn,
+                      inp_bank=inp_bank, need_caps=None if need is None else need.caps)
+            return (make_train_step(*args, **kw),
+                    make_train_steps(*args, steps=spd, **kw) if spd > 1 else None)
+
+        step, steps = build_steps()
         if steps is not None and grp is not None:
             print(f"--dp: each group of {spd} steps runs eagerly, one step after another "
                   "(the ranks' gloo collectives cannot be captured in a CUDA graph)")
@@ -329,6 +349,11 @@ def train(
                                     debug_points(bundle, feeds[-1], inp_bank))
                 if max_steps is not None and first_iter >= max_steps:
                     done = True
+            if need is not None and not done and (epoch == epoch_start + 1
+                                                  or epoch % mp.save_epoch == 0):
+                # opacities, hence the needed depths, move during training
+                if need_table.update([need], [logger], epoch):
+                    step, steps = build_steps()
             if lead and epoch > saving_epochs[0] and epoch % mp.save_epoch == 0:
                 print(f"[Epoch {epoch}] saving model")
                 ckpt.save_train_state(mp.model_path, epoch, state)
@@ -337,6 +362,9 @@ def train(
 
         if lead:
             ckpt.save_train_state(mp.model_path, min(epoch, opt.epochs), state)
+        if need is not None:
+            # the probes' H-fwd launches are among the kernel launches below
+            logger.log_event("need_table_probes", need.probes)
         logger.log_event("kernel_launches", mesh.sum_counts(launches_since(launches_before), grp))
         return state
     finally:

@@ -24,9 +24,17 @@ says so in one warning line (ROADMAP F14). A resumed run takes the saves
 as they are: the JAX multi-subject loop runs `stage_load` only on a fresh
 start.
 
-Left out, as in the single-subject loop: the JAX loop's capacity
-machinery (the shared chunk budget, need tables, tier pooling, fairness
-telemetry, footprint adaptation).
+With `--ragged 1 --auto_cascade 1` every subject keeps its own need table
+and the subjects share one footprint, decided by the worst subject's clip
+fraction, as in the JAX loop (engine/need_table.py; the JAX CLI turns them
+on by default above 256 queries, the port's does not). Left out, as in the
+single-subject loop: the rest of the JAX loop's capacity machinery (the
+shared chunk budget, tier pooling, fairness telemetry).
+
+`init` picks the networks' initialisation (engine/setup.setup_avatar):
+"torch" (the default) draws them one subject after the other from torch's
+default generator, "flax" subject s from a generator seeded s (the JAX
+loop's PRNGKey(s)).
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import torch
 from gaussianavatar_torch.config import Config
 from gaussianavatar_torch.data.dataset import BatchLoader
 from gaussianavatar_torch.engine import checkpoint as ckpt
+from gaussianavatar_torch.engine import need_table
 from gaussianavatar_torch.engine.inference import require_device
 from gaussianavatar_torch.engine.logging_utils import open_logger
 from gaussianavatar_torch.engine.loop import (
@@ -58,12 +67,13 @@ from gaussianavatar_torch.parallel.multi_subject import Subject, check_subjects
 from gaussianavatar_torch.utils.cuda_build import LAUNCHES, launches_since
 
 
-def build_subjects(cfgs: Sequence[Config], device: str) -> tuple:
+def build_subjects(cfgs: Sequence[Config], device: str, init: str = "torch") -> tuple:
     """-> (subjects, loaders, steps_per_epoch): every subject's bundle, GT
-    bank (stage 2: posmap bank) and TrainState on `device`, its loader
-    seeded with its index, and the run's steps per epoch (the fewest of any
-    subject)."""
-    bundles = [setup_avatar(c, device=device, train=True) for c in cfgs]
+    bank (stage 2: posmap bank) and TrainState on `device`, its network
+    initialised by `init` and its loader seeded with its index, and the
+    run's steps per epoch (the fewest of any subject)."""
+    bundles = [setup_avatar(c, device=device, train=True, seed=s, init=init)
+               for s, c in enumerate(cfgs)]
     check_subjects(cfgs, bundles)
     loaders = [BatchLoader(b.frames, c.model.batch_size, seed=s)
                for s, (b, c) in enumerate(zip(bundles, cfgs))]
@@ -85,6 +95,7 @@ def train_multi(
     checkpoint_epochs: Sequence[int] = (),
     device: str = "cuda",
     max_steps: Optional[int] = None,
+    init: str = "torch",
 ) -> List[TrainState]:
     """Train len(cfgs) subjects in lockstep; each cfg carries its own
     source_path and model_path, the rest is the first subject's. Stops once
@@ -105,7 +116,7 @@ def train_multi(
         loggers.append(open_logger(cfg.model.model_path, lead))
     launches_before = dict(LAUNCHES)
     try:
-        subjects, loaders, steps_per_epoch = build_subjects(cfgs, device)
+        subjects, loaders, steps_per_epoch = build_subjects(cfgs, device, init)
         states = [s.state for s in subjects]
         model_paths = [cfg.model.model_path for cfg in cfgs]
         H, W = subjects[0].bundle.frames.image_hw()
@@ -125,8 +136,21 @@ def train_multi(
                 ckpt.stage_load(s.bundle.net, cfg.model.stage1_out_path)
         for s in subjects:
             mesh.replicate(s.bundle.net, grp)
-        step = make_grid_step(subjects, opt, H, W, bg, raster_config(cfg0, train=True), grp,
-                              train_stage=stage)
+        raster_cfg = raster_config(cfg0, train=True)
+        tables = []
+        if need_table.enabled(cfg0):
+            tables = [need_table.NeedTable(cfg, s.bundle, s.bundle.frames, raster_cfg, H, W,
+                                           drop=DROP_KEYS, inp_bank=s.inp_bank)
+                      for s, cfg in zip(subjects, cfgs)]
+            need_table.update(tables, loggers)
+            subjects = [s._replace(need_caps=t.caps) for s, t in zip(subjects, tables)]
+
+        def build_step():
+            return make_grid_step(subjects, opt, H, W, bg,
+                                  tables[0].config() if tables else raster_cfg, grp,
+                                  train_stage=stage)
+
+        step = build_step()
 
         first_iter = start_iter = epoch_start * steps_per_epoch
         t_start = time.time()
@@ -162,6 +186,10 @@ def train_multi(
                 if max_steps is not None and first_iter >= max_steps:
                     done = True
                     break
+            if tables and not done and (epoch == epoch_start + 1
+                                        or epoch % cfg0.model.save_epoch == 0):
+                if need_table.update(tables, loggers, epoch):
+                    step = build_step()
             if lead and epoch > saving_epochs[0] and epoch % cfg0.model.save_epoch == 0:
                 print(f"[Epoch {epoch}] saving {S} subject checkpoints")
                 ckpt.save_stacked_checkpoint(model_paths, epoch, states)
@@ -173,6 +201,9 @@ def train_multi(
         # the whole run's launches (every subject, every rank) in each subject's log
         launches = mesh.sum_counts(launches_since(launches_before), grp)
         for logger in loggers:
+            if tables:
+                # every subject's probes, as the launches below are every subject's
+                logger.log_event("need_table_probes", sum(t.probes for t in tables))
             logger.log_event("kernel_launches", launches)
         return states
     finally:

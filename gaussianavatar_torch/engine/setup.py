@@ -62,7 +62,12 @@ def _load_reference_assets(mp, betas: np.ndarray, J: int, device) -> Optional[Av
                       uv_coord_map(R)[valid_idx], inv_mats, betas, R, 256, device)
 
 
-def setup_avatar(cfg: Config, device: str = "cuda", train: bool = False) -> AvatarBundle:
+def setup_avatar(cfg: Config, device: str = "cuda", train: bool = False,
+                 seed: int = 0, init: str = "torch") -> AvatarBundle:
+    """The subject's body model, assets and network, initialised by `init`
+    (models/avatar.AvatarNet): "torch" (the default) from torch's default
+    generator, "flax" (the JAX `init_state`'s distribution) from a CPU
+    generator seeded `seed` (its PRNGKey(seed))."""
     mp, npar = cfg.model, cfg.net
     frames = MonoDatasetTrain(mp) if train else FrameTable(mp)
     betas = np.asarray(frames.smpl_data["beta"], np.float32).reshape(-1)
@@ -116,6 +121,8 @@ def setup_avatar(cfg: Config, device: str = "cuda", train: bool = False) -> Avat
         decoder_impl="fused" if npar.fused_decoder else "ref",
         pose_init=frames.pose_data,
         transl_init=frames.transl_data,
+        generator=torch.Generator().manual_seed(seed) if init == "flax" else None,
+        init=init,
         device=device,
     )
     return AvatarBundle(body_model=body_model.to(device), assets=assets, net=net, frames=frames)

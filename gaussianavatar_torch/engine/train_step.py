@@ -50,7 +50,8 @@ int32 device counter the body advances; `TrainState.iteration` is its
 Python mirror, written into it before each dispatch), the scale warm-up (a
 device select on that counter), Adam's counts, rates and bias corrections
 (engine/optim.py), `w_rgl` and the two gates (float32 device scalars
-written before each dispatch), and the batch (copied into static buffers).
+written before each dispatch), the batch (copied into static buffers) and
+the need table's caps (refilled in place at a retune).
 The body reads nothing back to the host: the blend's backward takes the
 whole slot table (ops/rasterize_tile.BlendTiles). On a card the first
 dispatch for each (pose gate on, LPIPS gate on) pair runs its S steps
@@ -109,7 +110,7 @@ class StepScalars:
 
 
 def _make_body(net, body_model, assets, opt_cfg, H, W, bg_color, raster_cfg, gt_bank,
-               train_stage, lpips_fn, aiap_nn, inp_bank):
+               train_stage, lpips_fn, aiap_nn, inp_bank, need_caps):
     """-> body(state, b, sc, lpips_on) -> (terms, images): one optimizer step
     on the batch `b` (tensors on the device), reading the iteration and the
     gates from `sc` (StepScalars) and advancing its iteration; `lpips_on`
@@ -156,7 +157,8 @@ def _make_body(net, body_model, assets, opt_cfg, H, W, bg_color, raster_cfg, gt_
             world, shs, scales3, rotations, opacity,
             b["world_view_transform"], b["full_proj_transform"],
             b["tan_fovx"].reshape(B), b["tan_fovy"].reshape(B), H, W, bg,
-            config=raster_cfg if grp is None else raster_cfg._replace(key_views=B * grp.dp))
+            config=raster_cfg if grp is None else raster_cfg._replace(key_views=B * grp.dp),
+            caps=None if need_caps is None else need_caps[idx].reshape(-1))
 
         with record_function("train::loss"):
             l1 = (1.0 - opt_cfg.lambda_dssim) * l1_loss(images, gt)
@@ -222,15 +224,18 @@ def make_train_step(
     lpips_fn: Optional[Callable] = None,   # ops/lpips.LPIPS on the device, or None
     aiap_nn: Optional[torch.Tensor] = None,   # (num_valid, k) neighbour indices, --use_aiap
     inp_bank: Optional[torch.Tensor] = None,  # (n_frames | 1, 3, F, F) f32, stage 2
+    need_caps: Optional[torch.Tensor] = None,  # (n_frames, T) int32 per-tile row caps
 ):
     """-> train_step(state, batch, w_rgl, pose_opt_gate, lpips_gate) ->
     (terms, images): one optimizer step on `batch` (numpy arrays keyed as
     the dataset's items, without the image). `terms` holds the loss terms,
     `total` and `raster_overflow` as detached scalars; the gates are floats,
     0 or 1. Stage 2 needs `inp_bank`: every training frame's input posmap,
-    or one row, the fixed posmap every frame takes."""
+    or one row, the fixed posmap every frame takes. With `need_caps` (the
+    need table, engine/need_table.py) each frame's tiles blend at most its
+    row's caps, read at every step."""
     body = _make_body(net, body_model, assets, opt_cfg, H, W, bg_color, raster_cfg, gt_bank,
-                      train_stage, lpips_fn, aiap_nn, inp_bank)
+                      train_stage, lpips_fn, aiap_nn, inp_bank, need_caps)
     device = assets.query_points.device
     sc = StepScalars(device)
 
@@ -324,6 +329,7 @@ def make_train_steps(
     lpips_fn: Optional[Callable] = None,
     aiap_nn: Optional[torch.Tensor] = None,
     inp_bank: Optional[torch.Tensor] = None,
+    need_caps: Optional[torch.Tensor] = None,
     graph_cls: Optional[type] = None,
 ):
     """The S-step dispatch (S = `steps`), counterpart of the JAX
@@ -341,7 +347,7 @@ def make_train_steps(
     if steps < 2:
         raise ValueError(f"make_train_steps takes S >= 2 steps, got {steps}")
     body = _make_body(net, body_model, assets, opt_cfg, H, W, bg_color, raster_cfg, gt_bank,
-                      train_stage, lpips_fn, aiap_nn, inp_bank)
+                      train_stage, lpips_fn, aiap_nn, inp_bank, need_caps)
     device = assets.query_points.device
     sc = StepScalars(device)
     if graph_cls is None and device.type == "cuda" and mesh.group() is None:

@@ -28,6 +28,7 @@ from torch import nn
 
 from gaussianavatar_torch.models import body as body_mod
 from gaussianavatar_torch.models.body import BodyModel
+from gaussianavatar_torch.models.init import init_like_flax
 from gaussianavatar_torch.models.layers import UnetNoCond5DS
 from gaussianavatar_torch.models.pop import POPDecoder
 from gaussianavatar_torch.ops.uv_raster import bary_interpolate, rasterize_uv_atlas, uv_coord_map
@@ -107,12 +108,30 @@ def build_avatar_assets(
     return pad_assets(qp, ql, valid_idx, uvc, inv_mats, betas, query_res, pad_to, device)
 
 
+# the initialisations AvatarNet offers
+INITS = ("torch", "flax")
+
+
 class AvatarNet(nn.Module):
     """Learnable state: geometry feature map + POP decoder + per-frame
     pose/transl embeddings (+ the stage-2 pose encoder, fresh from its
-    initialisation: stage 2 copies the rest from stage 1). `generator`
-    seeds the geometry feature init, 0.01 * N(0, 1) as in the JAX package,
-    and the 'unet' smoother's dropout."""
+    initialisation: stage 2 copies the rest from stage 1).
+
+    The geometry features draw 0.01 * N(0, 1) from `generator` (None:
+    torch's default generator), as in the JAX package. `init` picks the
+    layers' initialisation:
+      - "torch" (the default): torch's own (kaiming_uniform(a=sqrt(5))
+        kernels, U(+-1/sqrt(fan_in)) biases), drawn from torch's default
+        generator as the layers are built;
+      - "flax": the JAX package's `init_state` in distribution, drawn from
+        `generator` after the geometry features: every kernel flax's
+        lecun_normal (models/init.py), biases zero. With a CPU generator
+        everything is drawn on the CPU and then moved to `device`, so one
+        seed gives the same state on either.
+    BatchNorm starts at scale 1, bias 0. From flax's initialisation the
+    port's default campaign fails its gates (ROADMAP F20), so the CLIs
+    take it only when asked (`--init flax`). The 'unet' smoother's dropout
+    draws from the device's default generator."""
 
     def __init__(
         self,
@@ -135,11 +154,14 @@ class AvatarNet(nn.Module):
         pose_init: Optional[np.ndarray] = None,
         transl_init: Optional[np.ndarray] = None,
         generator: Optional[torch.Generator] = None,
+        init: str = "torch",
         device: str = "cuda",
     ):
         super().__init__()
         if train_stage not in (1, 2):
             raise ValueError(f"train_stage must be 1 or 2, got {train_stage}")
+        if init not in INITS:
+            raise ValueError(f"init must be one of {INITS}, got {init!r}")
         F = inp_posmap_size
         geo = torch.randn((1, c_geom, F, F), generator=generator) * 0.01
         self.geo_feature = nn.Parameter(geo)
@@ -151,11 +173,12 @@ class AvatarNet(nn.Module):
                               hsize=hsize, up_mode=up_mode, use_dropout=use_dropout,
                               pos_encoding=pos_encoding, num_emb_freqs=num_emb_freqs,
                               posemb_incl_input=posemb_incl_input,
-                              compute_dtype=compute_dtype, decoder_impl=decoder_impl,
-                              generator=generator)
+                              compute_dtype=compute_dtype, decoder_impl=decoder_impl)
         # the input posmap is xyz: 3 channels
         self.pose_encoder = (UnetNoCond5DS(3, c_pose, nf, up_mode, use_dropout=False)
                              if train_stage == 2 else None)
+        if init == "flax":
+            init_like_flax(self, generator)
         self.to(device)
 
     def lookup(self, idx: torch.Tensor):

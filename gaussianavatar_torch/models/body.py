@@ -133,6 +133,12 @@ def load_body_model(model_path: str, model_type: str = "smpl", gender: str = "ne
     return _from_struct(data, model_type, num_betas, num_expressions)
 
 
+def create(model_path: str, model_type: str = "smpl", gender: str = "neutral",
+           **kwargs) -> BodyModel:
+    """smplx.create-style factory: `load_body_model` under smplx's name."""
+    return load_body_model(model_path, model_type=model_type, gender=gender, **kwargs)
+
+
 def forward(
     model: BodyModel,
     betas: torch.Tensor,                     # (B, n_betas)

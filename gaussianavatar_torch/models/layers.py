@@ -67,15 +67,18 @@ class FlaxBatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             axes = [d for d in range(x.dim()) if d != self.feature_dim % x.dim()]
+            # each channel's sum and sum of squares divided by the count, a
+            # device tensor (made by a fill, which a CUDA graph captures): the
+            # arithmetic of a data-parallel group's global statistics, so
+            # ranks that hold the same rows normalise them bit for bit as one
+            # process does (mean() would multiply by the count's reciprocal)
+            C = xf.shape[self.feature_dim]
+            n = torch.full((1,), xf.numel() / C, dtype=xf.dtype, device=xf.device)
+            sums = torch.cat([xf.sum(dim=axes), (xf * xf).sum(dim=axes), n])
             if mesh.syncs_batch_stats() and torch.is_grad_enabled():
-                # the global batch's statistics: each channel's sum, sum of
-                # squares and count over every rank
-                C = xf.shape[self.feature_dim]
-                n = xf.new_tensor([xf.numel() / C])
-                sums = mesh.global_sum(torch.cat([xf.sum(dim=axes), (xf * xf).sum(dim=axes), n]))
-                mean, mean2 = sums[:C] / sums[-1], sums[C:2 * C] / sums[-1]
-            else:
-                mean, mean2 = xf.mean(dim=axes), (xf * xf).mean(dim=axes)
+                # the global batch's statistics: summed over every rank
+                sums = mesh.global_sum(sums)
+            mean, mean2 = sums[:C] / sums[-1], sums[C:2 * C] / sums[-1]
             # jnp.maximum, as flax: an even split of the gradient at a tie
             var = torch.maximum(mean2 - mean * mean, torch.zeros_like(mean))
             if torch.is_grad_enabled():

@@ -15,6 +15,10 @@ import numpy as np
 import torch
 
 
+def fov2focal(fov: float, pixels: float) -> float:
+    return pixels / (2 * math.tan(fov / 2))
+
+
 def focal2fov(focal: float, pixels: float) -> float:
     return 2 * math.atan(pixels / (2 * focal))
 
@@ -46,6 +50,13 @@ def projection_from_intrinsics(
     bottom = (K[1, 2] - h) * near_fy
     top = K[1, 2] * near_fy
     return _frustum(znear, zfar, left, right, bottom, top)
+
+
+def projection_from_fov(znear: float, zfar: float, fovX: float, fovY: float) -> np.ndarray:
+    """Symmetric perspective projection 4x4 (NOT transposed) from field of view."""
+    top = math.tan(fovY / 2) * znear
+    right = math.tan(fovX / 2) * znear
+    return _frustum(znear, zfar, -right, right, -top, top)
 
 
 def _frustum(znear, zfar, left, right, bottom, top) -> np.ndarray:

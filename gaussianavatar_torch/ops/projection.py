@@ -22,6 +22,15 @@ import torch
 from gaussianavatar_torch.ops.rotations import quaternion_to_matrix
 
 
+def compute_cov3d(scales: torch.Tensor, rotations: torch.Tensor,
+                  scale_modifier: float = 1.0) -> torch.Tensor:
+    """(..., 3) scales + (..., 4) wxyz quaternions -> (..., 3, 3) covariance
+    R S S^T R^T."""
+    R = quaternion_to_matrix(rotations)
+    M = R * (scales * scale_modifier)[..., None, :]  # columns scaled: R @ diag(S)
+    return M @ M.transpose(-1, -2)
+
+
 class ProjectedGaussians(NamedTuple):
     means2d: torch.Tensor   # (B, N, 2) pixel coords
     depths: torch.Tensor    # (B, N) view-space z

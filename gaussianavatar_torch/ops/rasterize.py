@@ -57,11 +57,13 @@ def rasterize_views(
     width: int,
     bg_color: torch.Tensor,               # (3,)
     config: RasterizeConfig = RasterizeConfig(),
+    caps: Optional[torch.Tensor] = None,  # (B*T,) int32 per-tile row cap
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Render B views -> ((B, 3, H, W) image, () int64 overflow). Overflow
-    counts the gaussian-tile pairs cut by the footprint cap M; 0 means
-    nothing was cut. `config.backend == "brute"` blends every gaussian at
-    every pixel instead (ops/rasterize_ref: tests and tiny scenes; no
+    counts the gaussian-tile pairs cut by the footprint cap M and by
+    `caps` (the training loop's need table); 0 means nothing was cut.
+    `config.backend == "brute"` blends every gaussian at every pixel
+    instead (ops/rasterize_ref: tests and tiny scenes; no caps, no
     overflow)."""
     B, N = means3d.shape[:2]
     if rotations.dim() == 2:
@@ -80,7 +82,8 @@ def rasterize_views(
         return torch.stack(imgs), torch.zeros((), dtype=torch.int64, device=means3d.device)
     if config.backend != "tile":
         raise ValueError(f"backend must be tile or brute, got {config.backend!r}")
-    return rasterize_views_binned(projs, colors, opacities, bg_color, height, width, config)
+    return rasterize_views_binned(projs, colors, opacities, bg_color, height, width, config,
+                                  caps)
 
 
 def rasterize(

@@ -16,9 +16,12 @@ Pipeline for a batch of B views:
      table. Its plain version is `blend_tiles_bwd_plain`.
 
 The JAX package blends at most K rows per tile (capacity tiers) because a
-TPU kernel needs static shapes; the port has no capacities. The footprint
-cap M stays: a gaussian covers at most MW x MH tiles, and every clipped
-(gaussian, tile) pair is counted in the reported overflow.
+TPU kernel needs static shapes; the port has no tiers. It takes the one
+capacity that shapes training, a per-tile row cap (`caps`), which the
+training loop's need table sizes from `probe_tile_depths`
+(engine/need_table.py). The footprint cap M stays: a gaussian covers at
+most MW x MH tiles, and every clipped (gaussian, tile) pair is counted in
+the reported overflow.
 
 Sorting is always stable: ties of (tile, depth key) blend in gaussian-index
 order, through one sort of the 64-bit key (key << 32) | row.
@@ -56,9 +59,10 @@ class BinContext(NamedTuple):
 
 def _footprint_rects(mx, r, v, ts, txn, tyn, MW, MH):
     """Capped tile rects for every gaussian: (x0, y0, spanx, spany,
-    m_dropped). The rect is CUDA getRect's ([min, max) clamped to the grid);
-    footprints wider than MW x MH tiles are recentered on the mean's tile and
-    clipped, and every clipped valid pair is counted in `m_dropped`."""
+    m_dropped, raw_pairs). The rect is CUDA getRect's ([min, max) clamped
+    to the grid); footprints wider than MW x MH tiles are recentered on the
+    mean's tile and clipped, and every clipped valid pair is counted in
+    `m_dropped`; `raw_pairs` sums the valid gaussians' uncapped areas."""
     i32 = torch.int32
     x0 = torch.clamp(torch.floor((mx[..., 0] - r) / ts), 0, txn).to(i32)
     x1 = torch.clamp(torch.floor((mx[..., 0] + r + ts - 1) / ts), 0, txn).to(i32)
@@ -77,8 +81,25 @@ def _footprint_rects(mx, r, v, ts, txn, tyn, MW, MH):
     y0 = torch.where(spany > MH, torch.clamp(cyt - MH // 2, y0, y1 - MH), y0)
     spanx = torch.clamp_max(spanx, MW)
     spany = torch.clamp_max(spany, MH)
-    m_dropped = torch.where(v, raw_area - spanx * spany, torch.zeros_like(raw_area)).sum()
-    return x0, y0, spanx, spany, m_dropped
+    zero = torch.zeros_like(raw_area)
+    m_dropped = torch.where(v, raw_area - spanx * spany, zero).sum()
+    raw_pairs = torch.where(v, raw_area, zero).sum()
+    return x0, y0, spanx, spany, m_dropped, raw_pairs
+
+
+def footprint_drop(projs: ProjectedGaussians, opacities: torch.Tensor, height: int, width: int,
+                   ts: int, M: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dropped pairs, total pairs) that a footprint cap of M tiles per
+    gaussian would cut on this batch (B, N): the training loop's input for
+    the adaptive footprint (engine/need_table.py), rect arithmetic on the
+    projections with no binning, as the JAX package's `footprint_drop`."""
+    MW = math.isqrt(M)
+    B, N = projs.depths.shape
+    txn, tyn = _cdiv(width, ts), _cdiv(height, ts)
+    v = (projs.radii > 0) & (opacities.reshape(B, N) >= ALPHA_MIN)
+    *_, m_dropped, raw_pairs = _footprint_rects(projs.means2d, projs.radii, v, ts, txn, tyn,
+                                                MW, MW)
+    return m_dropped, raw_pairs
 
 
 def depth_key_bits(n_tiles_total: int) -> int:
@@ -123,7 +144,7 @@ def _bin_gaussians(
     v = (projs.radii > 0) & (ops.detach() >= ALPHA_MIN)
     mx = projs.means2d
     # rects and keys are integers: no gradient flows through them
-    x0, y0, spanx, spany, m_dropped = _footprint_rects(
+    x0, y0, spanx, spany, m_dropped, _ = _footprint_rects(
         mx.detach(), projs.radii.detach(), v, ts, txn, tyn, MW, MH)
 
     depth_key = torch.clamp_min(projs.depths.detach(), 1e-6).contiguous().view(torch.int32) \
@@ -660,3 +681,31 @@ def rasterize_views_binned(
                              for t in T_t.reshape(B, n_tiles, 1, ts * ts)])
         img = img + T_img[:, None] * bg[None, :, None, None]
     return img, overflow
+
+
+@torch.no_grad()
+def probe_tile_depths(
+    projs: ProjectedGaussians,   # batched (B, N, ...) fields
+    colors: torch.Tensor,        # (B, N, 3)
+    opacities: torch.Tensor,     # (B, N)
+    height: int,
+    width: int,
+    config,
+    probe_capacity: int = 4096,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The saturation probe (the JAX package's `probe_tile_depths`): one
+    blend with every tile capped at `probe_capacity` rows -> per tile
+    (binned count, NEEDED depth), both (B*T,) int32. The needed depth is the
+    largest n_contrib over the tile's pixels: the rank at which the blend's
+    early termination stopped taking gaussians, so a cap at or above it
+    blends, forward and backward, what the uncapped blend does."""
+    ts = config.tile_size
+    MW = math.isqrt(config.max_tiles_per_gaussian)
+    B = colors.shape[0]
+    txn, tyn = _cdiv(width, ts), _cdiv(height, ts)
+    n_tiles = txn * tyn
+    ctx = _bin_gaussians(projs, colors, opacities.reshape(B, -1), height, width, ts, MW, MW)
+    caps = torch.full((B * n_tiles,), probe_capacity, dtype=torch.int32,
+                      device=ctx.offsets.device)
+    _, _, ncon, _ = blend_tiles(ctx.packed, ctx.sorted_vals, ctx.offsets, txn, ts, n_tiles, caps)
+    return ctx.full_counts, ncon.reshape(B * n_tiles, -1).amax(dim=1).to(torch.int32)

@@ -1,4 +1,6 @@
-"""POP feature-map upsampling (counterpart of gaussianavatar_tpu/ops/resample.py).
+"""Feature-map resampling (counterpart of gaussianavatar_tpu/ops/resample.py):
+`grid_sample`, bilinear sampling at normalised coordinates, and the POP
+upsampler built on its semantics.
 
 `pop_upsample` reproduces the POP decoder's
 `F.grid_sample(pix_feature, uv_to_grid(uv_loc))` exactly, quirks included:
@@ -15,6 +17,16 @@ import functools
 
 import numpy as np
 import torch
+
+
+def grid_sample(feat: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Bilinear sampling of NCHW `feat` (B, C, H, W) at `grid` (B, Ho, Wo,
+    2), normalised coordinates in [-1, 1] (grid[..., 0] = x, grid[..., 1] =
+    y), align_corners=False pixel math, zero outside -> (B, C, Ho, Wo). The
+    JAX function takes and returns NHWC; its semantics are defined as this
+    call's."""
+    return torch.nn.functional.grid_sample(feat, grid, mode="bilinear", padding_mode="zeros",
+                                           align_corners=False)
 
 
 @functools.lru_cache(maxsize=16)

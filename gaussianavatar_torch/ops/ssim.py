@@ -1,7 +1,7 @@
 """Image losses (counterpart of gaussianavatar_tpu/ops/ssim.py): SSIM with
 an 11x11 Gaussian window (sigma 1.5) applied as two separable depthwise
 convolutions with zero same-padding, C1 = 0.01^2, C2 = 0.03^2, mean over
-every pixel; per-image PSNR; L1. All in float32 (TF32 is off for the whole
+every pixel; per-image PSNR; L1 and L2 (the mean squared error). All in float32 (TF32 is off for the whole
 port, see gaussianavatar_torch/__init__.py): the sigma terms are
 E[x^2] - mu^2 cancellations that a lower-precision convolution spoils.
 """
@@ -67,3 +67,7 @@ def psnr(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
 
 def l1_loss(network_output: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     return (network_output - gt).abs().mean()
+
+
+def l2_loss(network_output: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    return ((network_output - gt) ** 2).mean()

@@ -35,6 +35,7 @@ class Subject(NamedTuple):
     state: TrainState
     gt_bank: torch.Tensor                 # (n_frames, 3, H, W) uint8 on the device
     inp_bank: Optional[torch.Tensor] = None   # stage 2's input posmaps
+    need_caps: Optional[torch.Tensor] = None  # its need table's caps (engine/need_table.py)
 
 
 def check_subjects(cfgs: Sequence, bundles: Sequence[AvatarBundle]):
@@ -71,7 +72,7 @@ def make_multi_subject_step(
     steps = [
         make_train_step(s.bundle.net, s.bundle.body_model, s.bundle.assets, opt_cfg, H, W,
                         bg_color, raster_cfg, s.gt_bank, train_stage=train_stage,
-                        inp_bank=s.inp_bank)
+                        inp_bank=s.inp_bank, need_caps=s.need_caps)
         for s in subjects
     ]
 

@@ -39,6 +39,17 @@ configured: a group of `--steps_per_dispatch` steps replayed as a CUDA
 graph shows as the graph's kernels, without the ranges (pass
 `--steps_per_dispatch 1` for them at every step).
 
+    python -m gaussianavatar_torch.train ... --init flax
+    python -m gaussianavatar_torch.train ... --ragged 1 --auto_cascade 1
+
+`--init flax` draws the network as the JAX package's `init_state` does
+(flax's lecun_normal kernels, zero biases, from a generator seeded 0);
+the default `--init torch` keeps torch's own layer initialisation (from
+flax's the default campaign fails its gates, ROADMAP F20). `--ragged 1
+--auto_cascade 1` train with the JAX loop's need table and adaptive
+footprint (engine/need_table.py), which the JAX CLI turns on by default
+above 256 queries and the port only when asked.
+
     python -m gaussianavatar_torch.train ... --steps_per_dispatch 8
 
 `--steps_per_dispatch S` (8 by default, as in the JAX package) runs every
@@ -58,7 +69,6 @@ repository's), `lpips_alex.npz` or the raw `alexnet*.pth` + `alex.pth` pair
 records which (the `lpips` event).
 """
 
-import contextlib
 import os
 import sys
 from argparse import ArgumentParser
@@ -85,6 +95,8 @@ def parse_args(argv=None):
     parser.add_argument("--profile_dir", type=str, default=None)
     parser.add_argument("--dp", type=int, default=1)
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--init", choices=("torch", "flax"), default="torch",
+                        help="the network's initialisation (models/avatar.AvatarNet)")
     args = parser.parse_args(argv if argv is not None else sys.argv[1:])
     return args, extract_config(args)
 
@@ -93,16 +105,22 @@ def main(argv=None, timeout_s=None):
     """`timeout_s` bounds a `--dp` run: its ranks are stopped and the call
     raises if they have not all finished by then."""
     from gaussianavatar_torch.engine.inference import require_device
+    from gaussianavatar_torch.engine.logging_utils import safe_state
 
     args, cfg = parse_args(argv)
     require_device(args.device)
-    if args.dp > 1:
-        from gaussianavatar_torch.parallel import mesh
+    stdout = safe_state(args.quiet)
+    try:
+        if args.dp > 1:
+            from gaussianavatar_torch.parallel import mesh
 
-        mesh.check_batch(cfg.model.batch_size, args.dp)
-        mesh.spawn_ranks(run_training, args.dp, args.device, (args, cfg), timeout_s=timeout_s)
-    else:
-        run_training(args, cfg)
+            mesh.check_batch(cfg.model.batch_size, args.dp)
+            mesh.spawn_ranks(run_training, args.dp, args.device, (args, cfg),
+                             timeout_s=timeout_s)
+        else:
+            run_training(args, cfg)
+    finally:
+        sys.stdout = stdout
 
 
 def run_training(args, cfg):
@@ -111,6 +129,7 @@ def run_training(args, cfg):
     import torch
 
     from gaussianavatar_torch.config import ignored_flags_note
+    from gaussianavatar_torch.engine.logging_utils import safe_state
     from gaussianavatar_torch.engine.loop import train
     from gaussianavatar_torch.ops.lpips import try_load_lpips
     from gaussianavatar_torch.parallel import mesh
@@ -118,35 +137,32 @@ def run_training(args, cfg):
     grp = mesh.group()
     device = args.device if grp is None else grp.device
     saving_epochs = sorted(set(args.save_epochs + [cfg.opt.epochs]))
-    # the JAX CLI seeds its host RNGs with 0; here the network's initial
-    # weights draw from torch's default generator
-    torch.manual_seed(0)
+    if grp is not None:
+        # a spawned rank: main's safe_state (timestamps, --quiet, the seeds)
+        # did not reach this process
+        safe_state(args.quiet)
     torch.autograd.set_detect_anomaly(args.detect_anomaly)
-    with contextlib.ExitStack() as stack:
-        if args.quiet:
-            stack.enter_context(contextlib.redirect_stdout(stack.enter_context(
-                open(os.devnull, "w"))))
-        print(ignored_flags_note())
-        print("Optimizing " + cfg.model.model_path)
-        lpips_fn, lpips_note = None, None
-        if args.no_lpips:
-            lpips_note = "disabled (--no_lpips)"
-        else:
-            lpips_fn = try_load_lpips(cfg.model.project_path, device=device)
-            if lpips_fn is None:
-                print("LPIPS weights not found; training without the LPIPS term")
-        run = lambda max_steps: train(cfg, saving_epochs, device=device,
-                                      max_steps=max_steps, lpips_note=lpips_note,
-                                      checkpoint_epochs=args.checkpoint_epochs,
-                                      lpips_fn=lpips_fn)
-        if args.profile_dir and (grp is None or grp.rank == 0):
-            trace = profiled(run, args.profile_dir, args.max_steps or 20, device)
-            print("profiler trace written to", trace)
-        elif args.profile_dir:
-            run(args.max_steps or 20)
-        else:
-            run(args.max_steps)
-        print("\nTraining complete.")
+    print(ignored_flags_note())
+    print("Optimizing " + cfg.model.model_path)
+    lpips_fn, lpips_note = None, None
+    if args.no_lpips:
+        lpips_note = "disabled (--no_lpips)"
+    else:
+        lpips_fn = try_load_lpips(cfg.model.project_path, device=device)
+        if lpips_fn is None:
+            print("LPIPS weights not found; training without the LPIPS term")
+    run = lambda max_steps: train(cfg, saving_epochs, device=device,
+                                  max_steps=max_steps, lpips_note=lpips_note,
+                                  checkpoint_epochs=args.checkpoint_epochs,
+                                  lpips_fn=lpips_fn, init=args.init)
+    if args.profile_dir and (grp is None or grp.rank == 0):
+        trace = profiled(run, args.profile_dir, args.max_steps or 20, device)
+        print("profiler trace written to", trace)
+    elif args.profile_dir:
+        run(args.max_steps or 20)
+    else:
+        run(args.max_steps)
+    print("\nTraining complete.")
 
 
 def profiled(run, profile_dir: str, max_steps: int, device: str) -> str:

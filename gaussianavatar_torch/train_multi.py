@@ -59,6 +59,8 @@ def main(argv=None, timeout_s=None):
                         help="evaluate every subject after training")
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--init", choices=("torch", "flax"), default="torch",
+                        help="the networks' initialisation (engine/multi_loop.train_multi)")
     args = parser.parse_args(argv if argv is not None else sys.argv[1:])
 
     out_root = args.model_path
@@ -66,6 +68,7 @@ def main(argv=None, timeout_s=None):
         parser.error("-m/--model_path (output root) is required")
 
     from gaussianavatar_torch.engine.inference import require_device
+    from gaussianavatar_torch.engine.logging_utils import safe_state
     from gaussianavatar_torch.parallel import mesh
 
     require_device(args.device)
@@ -79,48 +82,45 @@ def main(argv=None, timeout_s=None):
     mesh.check_batch(cfgs[0].model.batch_size, args.dp)
 
     saving_epochs = sorted(set(args.save_epochs + [cfgs[0].opt.epochs]))
-    if not args.quiet:
-        print(ignored_flags_note())
-        print(f"Optimizing {len(cfgs)} subjects into {out_root} "
-              f"({len(cfgs)} subjects x dp {args.dp}): {', '.join(names)}")
-    run_args = (cfgs, saving_epochs, args.checkpoint_epochs, args.device, args.max_steps,
-                args.quiet)
-    if args.dp > 1:
-        mesh.spawn_ranks(run_training, args.dp, args.device, run_args, timeout_s=timeout_s)
-    else:
-        run_training(*run_args)
-    if not args.quiet:
-        print("\nTraining complete.")
+    stdout = safe_state(args.quiet)
+    try:
+        if not args.quiet:
+            print(ignored_flags_note())
+            print(f"Optimizing {len(cfgs)} subjects into {out_root} "
+                  f"({len(cfgs)} subjects x dp {args.dp}): {', '.join(names)}")
+        run_args = (cfgs, saving_epochs, args.checkpoint_epochs, args.device, args.max_steps,
+                    args.quiet, args.init)
+        if args.dp > 1:
+            mesh.spawn_ranks(run_training, args.dp, args.device, run_args, timeout_s=timeout_s)
+        else:
+            run_training(*run_args)
+        if not args.quiet:
+            print("\nTraining complete.")
 
-    if args.eval_after:
-        from gaussianavatar_torch import eval as eval_cli
+        if args.eval_after:
+            from gaussianavatar_torch import eval as eval_cli
 
-        for cfg, name in zip(cfgs, names):
-            print(f"\nEvaluating subject {name}")
-            eval_cli.main(["-m", cfg.model.model_path, "--device", args.device])
+            for cfg, name in zip(cfgs, names):
+                print(f"\nEvaluating subject {name}")
+                eval_cli.main(["-m", cfg.model.model_path, "--device", args.device])
+    finally:
+        sys.stdout = stdout
 
 
-def run_training(cfgs, saving_epochs, checkpoint_epochs, device, max_steps, quiet):
+def run_training(cfgs, saving_epochs, checkpoint_epochs, device, max_steps, quiet, init):
     """The training run of `main`, in this process or in one rank of a
     data-parallel group (on the group's device)."""
-    import contextlib
-    import os
-
-    import torch
-
+    from gaussianavatar_torch.engine.logging_utils import safe_state
     from gaussianavatar_torch.engine.multi_loop import train_multi
     from gaussianavatar_torch.parallel import mesh
 
     grp = mesh.group()
-    # the JAX CLI seeds its host RNGs with 0; the networks' initial weights
-    # draw from torch's default generator, one subject after the other
-    torch.manual_seed(0)
-    with contextlib.ExitStack() as stack:
-        if quiet:
-            stack.enter_context(contextlib.redirect_stdout(stack.enter_context(
-                open(os.devnull, "w"))))
-        train_multi(cfgs, saving_epochs, checkpoint_epochs,
-                    device=device if grp is None else grp.device, max_steps=max_steps)
+    if grp is not None:
+        # a spawned rank: main's safe_state (timestamps, --quiet, the seeds)
+        # did not reach this process
+        safe_state(quiet)
+    train_multi(cfgs, saving_epochs, checkpoint_epochs,
+                device=device if grp is None else grp.device, max_steps=max_steps, init=init)
 
 
 if __name__ == "__main__":

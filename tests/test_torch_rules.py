@@ -261,7 +261,9 @@ def test_cfg_args_interoperate(tmp_path):
     merged = tconfig.extract_config(targs, tcfg)
     assert merged.raster.render_max_tiles_per_gaussian == 9 and merged.raster.tile_size == 16
     note = tconfig.ignored_flags_note()
-    assert "ragged_budget" in note and "auto_cascade" in note and "tile_size" not in note
+    assert "ragged_budget" in note and "tile_capacity" in note and "tile_size" not in note
+    # the need table's switches are read (engine/need_table.py)
+    assert "auto_cascade" not in note and "train_footprint_eps" not in note
 
 
 def test_startup_note_names_every_flag_the_port_ignores():
