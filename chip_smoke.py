@@ -67,11 +67,13 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      and held against their plain versions on the last batch, it/s and
      peak memory beside phase 5's), then `grid_knn` over the 222,784 valid
      query points on the card against `host_knn` (both timed; neighbour
-     sets and distances where the cell contract holds), and 30 steps with
-     the need table and the adaptive footprint (`--ragged 1 --auto_cascade
-     1`: H-fwd once per step and once per probe batch, H-bwd once per
-     step, both held against their plain versions on the last batch, its
-     caps included); (b) one 1024^2
+     sets and distances where the cell contract holds), and 30 steps on
+     the train CLI's defaults, flax's initial network and, at 512 queries,
+     the need table and the adaptive footprint (cfg_args shows both on;
+     H-fwd once per step and once per probe batch, H-bwd once per step,
+     both held against their plain versions on the last batch, its caps
+     included; every other training run keeps torch's initialisation and
+     the whole-range blend, `CALIBRATED_FLAGS`); (b) one 1024^2
      view of 20,000 gaussians at SH degree 3 through `ops/rasterize.
      rasterize` (H-fwd once, held against the plain blend; H-bwd once; the
      coefficients' gradient against the CPU's plain path); (c) 5 steps
@@ -141,7 +143,13 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      exact layout) joining at epoch 2 with AIAP on: the gate flips and a
      second graph is captured; (d) (a)-(c) again under torch's
      deterministic algorithms, where S=8 and S=1 give every step's loss and
-     the whole final state bit for bit and each control does not. (a) and
+     the whole final state bit for bit and each control does not; (e) the
+     train CLI's defaults on the quality gate's subject (48 frames of
+     512^2), 48 steps under the deterministic algorithms: flax's initial
+     network and the need table, whose epoch-1 retune refills the caps the
+     replayed graph reads and switches the footprint to M=4 (a second
+     capture), S=8 against S=1 bit for bit, beside a control whose retune
+     leaves the startup caps in the table. (a) and
      (b) hold the loss over the first two groups within limits their
      controls exceed (the atomics of `index_add_` part even two S=1 runs);
      launches exact (once a step, the fused decoder 9 / 11 / 11 per
@@ -402,7 +410,8 @@ def make_slice(device, decoder_impl="ref"):
         inp_posmap_size=cfg.model.inp_posmap_size, hsize=cfg.net.hsize,
         compute_dtype="bfloat16" if cfg.net.bf16_decoder else "float32",
         decoder_impl=decoder_impl,
-        pose_init=poses, generator=torch.Generator().manual_seed(0), device=device,
+        pose_init=poses, generator=torch.Generator().manual_seed(0), init="torch",
+        device=device,
     ).eval()
     inf = InferenceBundle(cfg, AvatarBundle(body.to(device), assets, net, frames=None), epoch=0)
     print(f"  avatar: {assets.num_valid} gaussians (+{assets.query_points.shape[0] - assets.num_valid}"
@@ -662,9 +671,17 @@ def phase_bwd_random_scene(device, card):
         _time_bwd(f"random scene, {label}", bwd_args, c, card)
 
 
-def _train_argv(data, out):
+# The phases' launch counts, holds and limits were set on torch's
+# initialisation and the whole-range blend, the train CLIs' defaults before
+# they took the JAX CLI's (flax's init, the need table above 256 queries):
+# they keep them, given explicitly. Phase 9's need-table run trains on the
+# defaults.
+CALIBRATED_FLAGS = ["--init", "torch", "--ragged", "0", "--auto_cascade", "0"]
+
+
+def _train_argv(data, out, calibrated=True):
     return ["-s", data, "-m", out, "--train_stage", "1", "--dataset_type", "synthetic",
-            "--pose_op_start_iter", "0", "--no_lpips"]
+            "--pose_op_start_iter", "0", "--no_lpips"] + (CALIBRATED_FLAGS if calibrated else [])
 
 
 def _run_counted(fn, *args):
@@ -937,7 +954,8 @@ def phase_stage2(device, card, work):
           f"(stage 1: {os.path.relpath(stage1, work)})")
 
     argv = ["-s", data, "-m", out, "--train_stage", "2", "--stage1_out_path", stage1,
-            "--dataset_type", "synthetic", "--no_lpips", "--max_steps", str(TRAIN_STEPS)]
+            "--dataset_type", "synthetic", "--no_lpips", "--max_steps", str(TRAIN_STEPS),
+            *CALIBRATED_FLAGS]
     torch.cuda.reset_peak_memory_stats()
     with _KernelRecorder() as recorder:
         _, counts, wall = _run_counted(train_cli.main, argv)
@@ -1371,10 +1389,13 @@ def phase_train_terms(device, card, work, train_stats):
     # the need table and the adaptive footprint (engine/need_table.py)
     out_need = os.path.join(work, "out_need")
     with _KernelRecorder() as recorder:
-        _, counts, wall = _run_counted(train_cli.main, _train_argv(data, out_need) + [
-            "--ragged", "1", "--auto_cascade", "1", "--max_steps", str(TRAIN_STEPS)])
+        _, counts, wall = _run_counted(train_cli.main, _train_argv(data, out_need, False) + [
+            "--max_steps", str(TRAIN_STEPS)])
     probes = _check_train_launches("the need-table run", counts, TRAIN_STEPS, out_need)
     need_steps, events = _metrics(out_need)
+    need_cfg = Config.load(os.path.join(out_need, "cfg_args.json")).raster
+    if not (need_cfg.ragged and need_cfg.auto_cascade):
+        _fail("a default training run at 512 queries did not turn the need table on")
     if not probes or "ragged_need_bank" not in events \
             or not all(math.isfinite(r["total"]) for r in need_steps.values()):
         _fail("the need-table run built no table or logged a loss that is not finite")
@@ -1788,7 +1809,8 @@ def phase_scale_out(device, card, work, train_stats):
           f" training frames, 4 test frames each) in {time.perf_counter() - t_phase:.1f} s")
     out = os.path.join(work, "multi_out")
     argv = ["--sources", *(os.path.join(root, n) for n, _ in MULTI_SUBJECTS), "-m", out,
-            "--train_stage", "1", "--dataset_type", "synthetic", "--pose_op_start_iter", "0"]
+            "--train_stage", "1", "--dataset_type", "synthetic", "--pose_op_start_iter", "0",
+            *CALIBRATED_FLAGS]
     torch.cuda.reset_peak_memory_stats()
     with _KernelRecorder() as recorder:
         _, counts, wall = _run_counted(train_multi.main, argv + ["--max_steps", str(MULTI_STEPS)])
@@ -1901,7 +1923,7 @@ def phase_scale_out(device, card, work, train_stats):
     out1 = os.path.join(work, "out")
     stage1 = ckpt.ckpt_dir(out1, ckpt.latest_epoch(out1, ckpt.TRAIN_NAME))
     s2 = lambda out: ["-s", data, "-m", out, "--train_stage", "2", "--stage1_out_path", stage1,
-                      "--dataset_type", "synthetic", "--no_lpips"]
+                      "--dataset_type", "synthetic", "--no_lpips", *CALIBRATED_FLAGS]
     for dtype, extra, tol, separates in (("f32", ["--bf16_decoder", "0"], TOL_DP_FIRST_S2, True),
                                          ("bf16", [], TOL_DP_FIRST_BF16, False)):
         label = f"stage 2 ({dtype} decoder)"
@@ -2427,7 +2449,8 @@ def phase_fused_decoder(device, card, work, train_stats):
     out1 = os.path.join(work, "out")
     stage1 = ckpt.ckpt_dir(out1, ckpt.latest_epoch(out1, ckpt.TRAIN_NAME))
     s2 = lambda out: ["-s", data, "-m", out, "--train_stage", "2", "--stage1_out_path", stage1,
-                      "--dataset_type", "synthetic", "--no_lpips", "--fused_decoder", "1"]
+                      "--dataset_type", "synthetic", "--no_lpips", "--fused_decoder", "1",
+                      *CALIBRATED_FLAGS]
     s2_out = os.path.join(work, "fused_s2_out")
     counts, rec, steps_m = _fused_train("stage 2 (B = 2 frames in one decode), bf16 fused decoder",
                                         s2(s2_out), s2_out, FUSED_S2_STEPS, card)
@@ -2531,7 +2554,7 @@ def phase_fused_decoder(device, card, work, train_stats):
     _, counts, wall = _run_counted(train_multi.main, [
         "--sources", *sources_multi, "-m", os.path.join(work, "fused_multi_out"),
         "--train_stage", "1", "--dataset_type", "synthetic", "--pose_op_start_iter", "0",
-        "--fused_decoder", "1", "--max_steps", str(FUSED_MULTI_STEPS)])
+        "--fused_decoder", "1", "--max_steps", str(FUSED_MULTI_STEPS), *CALIBRATED_FLAGS])
     _expect(f"train_multi, {S} subjects x {FUSED_MULTI_STEPS} steps ({wall:.1f} s)", counts,
             TRAIN_DECODE, S * FUSED_MULTI_STEPS)
     add(counts)
@@ -2565,6 +2588,9 @@ def phase_fused_decoder(device, card, work, train_stats):
 # 24 batches an epoch: three full groups of 8), two epochs, S=8 against S=1
 # from one seed; stage 2 on (a)'s save for 24 steps (one epoch, 3 groups).
 SPD, SPD_FRAMES, SPD_STEPS, SPD_STEPS_S2, SPD_STEPS_F32 = 8, 48, 48, 24, 24
+# (e)'s subject: scripts/torch_quality_gate.py's, whose epoch-1 retune from
+# the default initial network switches the footprint to M=4
+GATE_BODY = {"n_rings": 48, "n_cols": 32}
 # the group whose static buffers a control run leaves unrefreshed (a
 # replay: the first group runs eagerly and captures); the gate flip's is
 # the first replay after the flip
@@ -2598,6 +2624,29 @@ def _deterministic():
             yield
     finally:
         torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+@contextlib.contextmanager
+def _stale_caps():
+    """The control of phase 12 (e): every refill after the first (the
+    retunes) probes, measures its drift and decides the footprint as
+    usual, then puts the previous caps back in the table the step reads."""
+    from gaussianavatar_torch.engine import need_table
+
+    real = need_table.NeedTable.refill
+
+    def refill(self):
+        old = self.caps.clone() if self.built else None
+        out = real(self)
+        if old is not None:
+            self.caps.copy_(old)
+        return out
+
+    need_table.NeedTable.refill = refill
+    try:
+        yield
+    finally:
+        need_table.NeedTable.refill = real
 
 
 class _DispatchRecorder:
@@ -2780,6 +2829,46 @@ def _state_apart(a, b):
     return loss, state
 
 
+def _dispatch_defaults(device, work, run, out):
+    """Phase 12 (e): the train CLI's defaults (flax's initial network, the
+    need table at 512 queries) on the gate's subject under the deterministic
+    algorithms, where the epoch-1 retune refills the caps in place and
+    switches M to 4, so the S=8 run captures a second graph: S=8 against
+    S=1, and a control whose retune leaves the startup caps in the table.
+    `run` and `out` are phase_dispatch's. -> its checks."""
+    from gaussianavatar_torch.config import Config
+    from gaussianavatar_torch.data.synthetic_writer import write_synthetic_dataset
+
+    gate = os.path.join(work, "data48_gate")
+    write_synthetic_dataset(gate, n_train=SPD_FRAMES, n_test=2, image_size=512,
+                            body_kwargs=GATE_BODY, device=device)
+    defaults = lambda o: ["-s", gate, "-m", o, "--train_stage", "1", "--dataset_type",
+                          "synthetic", "--no_lpips"]
+    with _deterministic():
+        got = [run("defaults, deterministic", defaults, "defaults_s1", 1, SPD_STEPS),
+               run("defaults, deterministic", defaults, "defaults_s8", SPD, SPD_STEPS,
+                   captures=2)]
+        with _stale_caps():
+            got.append(run("defaults, deterministic, stale caps", defaults,
+                           "defaults_s8_control", SPD, SPD_STEPS, captures=2))
+    for name in ("defaults_s1", "defaults_s8", "defaults_s8_control"):
+        raster = Config.load(os.path.join(out(name), "cfg_args.json")).raster
+        events = _metrics(out(name))[1]
+        if not (raster.ragged and raster.auto_cascade
+                and str(events.get("footprint_adapt", "")).startswith("M 4 ")):
+            _fail(f"phase 12 (e) {name}: the need table is not on, or the epoch-1 retune did "
+                  f"not switch the footprint to M=4 ({events.get('footprint_adapt')}, "
+                  f"drift {events.get('ragged_drift')})")
+    events = _metrics(out("defaults_s8"))[1]
+    s, c = _state_apart(*got[:2]), _state_apart(got[0], got[2])
+    print(f"  defaults, deterministic, S=8 vs S=1: largest |loss difference| {s[0]:.3e}, "
+          f"largest |final tensor difference| {s[1]:.3e} (control, stale caps: {c[0]:.3e}, "
+          f"{c[1]:.3e}; limit 0); the epoch-1 retune: footprint {events['footprint_adapt']}, "
+          f"drift {events['ragged_drift']}, {events['need_table_probes']} probe batches")
+    return [("defaults, deterministic: losses", (s[0], c[0]), 0.0),
+            ("defaults, deterministic: final state", (s[1], c[1]), 0.0)]
+
+
 def phase_dispatch(device, card, work):
     """Phase 12: --steps_per_dispatch 8 (a CUDA graph of 8 steps, replayed)
     against --steps_per_dispatch 1, each beside a control whose replay keeps
@@ -2788,7 +2877,8 @@ def phase_dispatch(device, card, work):
     decoder at float32 (S=8 alone, 24 steps); (b) stage 2 on (a)'s
     save, 24 steps; (c) a gate flip inside the run (LPIPS from epoch 2, AIAP
     on), two captures; (d) (a)-(c) again under torch's deterministic
-    algorithms, exact. -> (H-fwd's error, H-bwd's error, {kernel: launches}
+    algorithms, exact; (e) the train CLI's defaults with the need table's
+    M switch, exact, beside a stale-caps control. -> (H-fwd's error, H-bwd's error, {kernel: launches}
     over every run)."""
     from gaussianavatar_torch import export_stage_1, gen_pose_map_frames
     from gaussianavatar_torch.data.synthetic_writer import write_synthetic_dataset
@@ -2861,7 +2951,8 @@ def phase_dispatch(device, card, work):
     export_stage_1.main(["-m", s1_out, "-s", data])
     gen_pose_map_frames.main(["--source_path", data, "--synthetic", "--size", "128"])
     cases["stage 2"] = (lambda o: ["-s", data, "-m", o, "--train_stage", "2", "--stage1_out_path",
-                                   stage1, "--dataset_type", "synthetic", "--no_lpips"],
+                                   stage1, "--dataset_type", "synthetic", "--no_lpips",
+                                   *CALIBRATED_FLAGS],
                         SPD_STEPS_S2, False, 1)
     argv_for, steps, _, _ = cases["stage 2"]
     got = [run("stage 2", argv_for, name, spd, steps, stale)
@@ -2903,6 +2994,11 @@ def phase_dispatch(device, card, work):
             checks.append((f"{label}, deterministic: losses", (s[0], c[0]), 0.0))
             checks.append((f"{label}, deterministic: final state", (s[1], c[1]), 0.0))
     print(f"  (d) in {time.perf_counter() - t_phase:.1f} s")
+
+    # (e) the train CLI's defaults, with the need table's M switch
+    t_phase = time.perf_counter()
+    checks += _dispatch_defaults(device, work, run, out)
+    print(f"  (e) in {time.perf_counter() - t_phase:.1f} s")
 
     for what, (sound_v, control_v), limit in checks:
         if not sound_v <= limit < control_v:
@@ -2964,7 +3060,8 @@ def main():
         decoder_kernels, _ = phase_fused_decoder(device, card, work, train_stats)
         print(f"  phase 11 in {time.perf_counter() - t11:.1f} s")
         print("phase 12: --steps_per_dispatch 8 (a CUDA graph of 8 training steps, replayed) "
-              "against 1: stage 1 (both decoders), stage 2, a gate flip")
+              "against 1: stage 1 (both decoders), stage 2, a gate flip, the defaults' M "
+              "switch")
         t12 = time.perf_counter()
         p12_fwd_err, p12_bwd_err, p12_counts = phase_dispatch(device, card, work)
         print(f"  phase 12 in {time.perf_counter() - t12:.1f} s")

@@ -4,11 +4,11 @@ Same dataclasses, flag names, defaults and `cfg_args.json` layout, so a
 `cfg_args.json` written by either package loads in the other. The port
 reads only the raster fields in `PORT_RASTER_FIELDS` (the tile size, the
 footprint caps, and the training need table and adaptive footprint that
-`--ragged 1 --auto_cascade 1` turn on, engine/need_table.py; the JAX train
-CLIs turn them on by default above 256 queries, the port's do not); the
-rest steer TPU capacity machinery (static-shape cascades, ragged chunk
-budgets, sampled retunes, gather layouts) that the port's blend does not
-need. They, and
+`--ragged 1 --auto_cascade 1` turn on, engine/need_table.py; the JAX
+train CLIs and the port's `train` turn them on by default above 256
+queries, `resolve_train_raster_defaults`); the rest steer TPU capacity
+machinery (static-shape cascades, ragged chunk budgets, sampled retunes,
+gather layouts) that the port's blend does not need. They, and
 the few other fields in `PORT_IGNORED_FIELDS`, still parse and still
 round-trip through `cfg_args.json`; `ignored_flags_note` names them all.
 """
@@ -247,6 +247,37 @@ class Config:
             opt=OptimizationParams(**payload["opt"]),
             raster=RasterParams(**payload.get("raster", {})),
         )
+
+
+# the largest query posmap the JAX package's fixed capacity cascade was
+# swept at; above it the JAX train CLIs and the port's `train` default to
+# the need table
+SWEPT_CASCADE_MAX_QUERY = 256
+
+
+def resolve_train_raster_defaults(cfg: Config, args: Optional[Namespace] = None) -> List[str]:
+    """The JAX train CLIs' defaults for the workload (gaussianavatar_tpu/
+    config.py `resolve_train_raster_defaults`), applied to `cfg` -> the
+    notes to print: above SWEPT_CASCADE_MAX_QUERY queries `ragged` and
+    `auto_cascade` default to 1 (the need table and the adaptive
+    footprint, engine/need_table.py) unless given on the command line
+    (`--ragged 0` or `--auto_cascade 0` opts out). Called by the `train`
+    CLI after `extract_config` (`train_multi` keeps the whole-range blend
+    unless asked, engine/multi_loop.py)."""
+    notes = []
+    explicit = lambda name: args is not None and getattr(args, name, None) is not None
+    r, q = cfg.raster, cfg.model.query_posmap_size
+    if q > SWEPT_CASCADE_MAX_QUERY:
+        if not r.ragged and not explicit("ragged"):
+            r.ragged = 1
+            notes.append(f"raster defaults: query_posmap_size {q} > {SWEPT_CASCADE_MAX_QUERY} "
+                         "-> ragged=1 (the per-frame need table of row caps. Opt out: "
+                         "--ragged 0)")
+        if not r.auto_cascade and not explicit("auto_cascade"):
+            r.auto_cascade = 1
+            notes.append("raster defaults: auto_cascade=1 (the caps and the footprint from "
+                         "the scene's own saturation probe. Opt out: --auto_cascade 0)")
+    return notes
 
 
 def extract_config(args: Namespace, saved: Optional[Config] = None) -> Config:

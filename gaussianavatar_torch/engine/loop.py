@@ -27,9 +27,9 @@ JAX loop, `stage_load` runs after a resume, so a resumed stage-2 run takes
 the decoder, the geometry features and the embeddings from stage 1 again
 (`restore_state`, which says so when it happens).
 
-With `--ragged 1 --auto_cascade 1` (which the JAX train CLIs turn on by
-default above 256 queries; the port's do not) the run keeps the JAX loop's
-need table and adaptive footprint (engine/need_table.py): every frame's
+With `--ragged 1 --auto_cascade 1` (which the JAX train CLIs and the
+port's `train` turn on by default above 256 queries) the run keeps the JAX
+loop's need table and adaptive footprint (engine/need_table.py): every frame's
 per-tile row caps from the saturation probe, built before the first epoch
 and rebuilt after it and at every save epoch, and the footprint M switched
 between 9 and 4 tiles at those retunes, the step rebuilt for the new M.
@@ -77,6 +77,7 @@ from gaussianavatar_torch.engine.logging_utils import open_logger
 from gaussianavatar_torch.engine.optim import build_optimizer
 from gaussianavatar_torch.engine.setup import setup_avatar
 from gaussianavatar_torch.engine.train_step import TrainState, make_train_step, make_train_steps
+from gaussianavatar_torch.models.avatar import DEFAULT_INIT
 from gaussianavatar_torch.ops.knn import host_knn
 from gaussianavatar_torch.ops.lpips import lpips_status
 from gaussianavatar_torch.ops.rasterize import raster_config
@@ -228,7 +229,7 @@ def train(
     lpips_note: Optional[str] = None,
     checkpoint_epochs: Sequence[int] = (),
     lpips_fn=None,
-    init: str = "torch",
+    init: str = DEFAULT_INIT,
 ) -> TrainState:
     """Train an avatar (stage `cfg.model.train_stage`) from `cfg.model.source_path` into
     `cfg.model.model_path`; stops once the iteration reaches `max_steps` if

@@ -27,14 +27,22 @@ start.
 With `--ragged 1 --auto_cascade 1` every subject keeps its own need table
 and the subjects share one footprint, decided by the worst subject's clip
 fraction, as in the JAX loop (engine/need_table.py; the JAX CLI turns them
-on by default above 256 queries, the port's does not). Left out, as in the
-single-subject loop: the rest of the JAX loop's capacity machinery (the
-shared chunk budget, tier pooling, fairness telemetry).
+on by default above 256 queries, the port's train_multi only when asked,
+see below). Left out, as in the single-subject loop: the rest of the JAX
+loop's capacity machinery (the shared chunk budget, tier pooling, fairness
+telemetry).
 
 `init` picks the networks' initialisation (engine/setup.setup_avatar):
-"torch" (the default) draws them one subject after the other from torch's
-default generator, "flax" subject s from a generator seeded s (the JAX
-loop's PRNGKey(s)).
+"torch" (MULTI_SUBJECT_INIT, the default here and in the CLI) draws them
+one subject after the other from torch's default generator, "flax" subject
+s as the JAX `init_state(..., rng=PRNGKey(s))`. Unlike the single-subject
+path, this one keeps torch's initialisation and the whole-range blend by
+default: subject s draws PRNGKey(s), and on the card the epoch-1 retunes
+from PRNGKey(1)'s and PRNGKey(5)'s draws left the footprint at M=9 where
+PRNGKey(0)'s switched it to 4 (ROADMAP F20). The subjects share the worst
+one's footprint, so every subject of two or more is expected to train in
+the regime whose campaigns failed their gates (no multi-subject run on
+those settings has been measured).
 """
 
 from __future__ import annotations
@@ -66,8 +74,14 @@ from gaussianavatar_torch.parallel.grid import make_grid_step
 from gaussianavatar_torch.parallel.multi_subject import Subject, check_subjects
 from gaussianavatar_torch.utils.cuda_build import LAUNCHES, launches_since
 
+# the networks' initialisation multi-subject training takes by default (see
+# the module's docstring; the single-subject default is
+# models/avatar.DEFAULT_INIT)
+MULTI_SUBJECT_INIT = "torch"
 
-def build_subjects(cfgs: Sequence[Config], device: str, init: str = "torch") -> tuple:
+
+def build_subjects(cfgs: Sequence[Config], device: str,
+                   init: str = MULTI_SUBJECT_INIT) -> tuple:
     """-> (subjects, loaders, steps_per_epoch): every subject's bundle, GT
     bank (stage 2: posmap bank) and TrainState on `device`, its network
     initialised by `init` and its loader seeded with its index, and the
@@ -95,7 +109,7 @@ def train_multi(
     checkpoint_epochs: Sequence[int] = (),
     device: str = "cuda",
     max_steps: Optional[int] = None,
-    init: str = "torch",
+    init: str = MULTI_SUBJECT_INIT,
 ) -> List[TrainState]:
     """Train len(cfgs) subjects in lockstep; each cfg carries its own
     source_path and model_path, the rest is the first subject's. Stops once

@@ -26,7 +26,9 @@ import torch
 
 from gaussianavatar_torch.config import Config, smpl_canonical_pose, smplx_canonical_pose
 from gaussianavatar_torch.data.dataset import FrameTable, MonoDatasetTrain
-from gaussianavatar_torch.models.avatar import AvatarAssets, AvatarNet, build_avatar_assets, pad_assets
+from gaussianavatar_torch.models.avatar import (
+    DEFAULT_INIT, AvatarAssets, AvatarNet, build_avatar_assets, pad_assets,
+)
 from gaussianavatar_torch.models.body import BodyModel, load_body_model
 from gaussianavatar_torch.ops.uv_raster import uv_coord_map
 from gaussianavatar_torch.utils.obj_io import load_obj
@@ -63,11 +65,11 @@ def _load_reference_assets(mp, betas: np.ndarray, J: int, device) -> Optional[Av
 
 
 def setup_avatar(cfg: Config, device: str = "cuda", train: bool = False,
-                 seed: int = 0, init: str = "torch") -> AvatarBundle:
+                 seed: int = 0, init: str = DEFAULT_INIT) -> AvatarBundle:
     """The subject's body model, assets and network, initialised by `init`
-    (models/avatar.AvatarNet): "torch" (the default) from torch's default
-    generator, "flax" (the JAX `init_state`'s distribution) from a CPU
-    generator seeded `seed` (its PRNGKey(seed))."""
+    (models/avatar.AvatarNet): "flax" as the JAX `init_state(...,
+    rng=PRNGKey(seed))`, value for value, "torch" from torch's default
+    generator."""
     mp, npar = cfg.model, cfg.net
     frames = MonoDatasetTrain(mp) if train else FrameTable(mp)
     betas = np.asarray(frames.smpl_data["beta"], np.float32).reshape(-1)

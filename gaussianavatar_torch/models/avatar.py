@@ -108,8 +108,12 @@ def build_avatar_assets(
     return pad_assets(qp, ql, valid_idx, uvc, inv_mats, betas, query_res, pad_to, device)
 
 
-# the initialisations AvatarNet offers
+# the initialisations AvatarNet offers, and the one it, setup_avatar, the
+# training loop and the train CLI take by default: the JAX package's
+# (ROADMAP F20; the multi-subject path keeps torch's,
+# engine/multi_loop.MULTI_SUBJECT_INIT)
 INITS = ("torch", "flax")
+DEFAULT_INIT = "flax"
 
 
 class AvatarNet(nn.Module):
@@ -117,20 +121,19 @@ class AvatarNet(nn.Module):
     pose/transl embeddings (+ the stage-2 pose encoder, fresh from its
     initialisation: stage 2 copies the rest from stage 1).
 
-    The geometry features draw 0.01 * N(0, 1) from `generator` (None:
-    torch's default generator), as in the JAX package. `init` picks the
-    layers' initialisation:
-      - "torch" (the default): torch's own (kaiming_uniform(a=sqrt(5))
-        kernels, U(+-1/sqrt(fan_in)) biases), drawn from torch's default
-        generator as the layers are built;
-      - "flax": the JAX package's `init_state` in distribution, drawn from
-        `generator` after the geometry features: every kernel flax's
-        lecun_normal (models/init.py), biases zero. With a CPU generator
-        everything is drawn on the CPU and then moved to `device`, so one
-        seed gives the same state on either.
-    BatchNorm starts at scale 1, bias 0. From flax's initialisation the
-    port's default campaign fails its gates (ROADMAP F20), so the CLIs
-    take it only when asked (`--init flax`). The 'unet' smoother's dropout
+    `init` picks the initialisation:
+      - "torch": the geometry features 0.01 * N(0, 1) from
+        `generator` (None: torch's default generator), the layers torch's
+        own (kaiming_uniform(a=sqrt(5)) kernels, U(+-1/sqrt(fan_in))
+        biases), drawn from torch's default generator as they are built;
+      - "flax" (DEFAULT_INIT): the JAX package's `init_state(...,
+        rng=PRNGKey(seed))`, value for value (models/init.py: flax's
+        lecun_normal kernels and 0.01 N(0, 1) geometry features from JAX's
+        own random stream, biases zero), seed = `generator.initial_seed()`
+        (None: torch's `initial_seed()`, its low 32 bits as JAX's
+        PRNGKey takes them); drawn on the CPU, so one seed gives the same
+        state on any device.
+    BatchNorm starts at scale 1, bias 0. The 'unet' smoother's dropout
     draws from the device's default generator."""
 
     def __init__(
@@ -154,7 +157,7 @@ class AvatarNet(nn.Module):
         pose_init: Optional[np.ndarray] = None,
         transl_init: Optional[np.ndarray] = None,
         generator: Optional[torch.Generator] = None,
-        init: str = "torch",
+        init: str = DEFAULT_INIT,
         device: str = "cuda",
     ):
         super().__init__()
@@ -163,7 +166,8 @@ class AvatarNet(nn.Module):
         if init not in INITS:
             raise ValueError(f"init must be one of {INITS}, got {init!r}")
         F = inp_posmap_size
-        geo = torch.randn((1, c_geom, F, F), generator=generator) * 0.01
+        geo = (torch.randn((1, c_geom, F, F), generator=generator) * 0.01 if init == "torch"
+               else torch.zeros((1, c_geom, F, F)))
         self.geo_feature = nn.Parameter(geo)
         pose = np.zeros((num_frames, pose_dim), np.float32) if pose_init is None else pose_init
         transl = np.zeros((num_frames, 3), np.float32) if transl_init is None else transl_init
@@ -178,7 +182,8 @@ class AvatarNet(nn.Module):
         self.pose_encoder = (UnetNoCond5DS(3, c_pose, nf, up_mode, use_dropout=False)
                              if train_stage == 2 else None)
         if init == "flax":
-            init_like_flax(self, generator)
+            init_like_flax(self, torch.initial_seed() if generator is None
+                           else generator.initial_seed())
         self.to(device)
 
     def lookup(self, idx: torch.Tensor):

@@ -39,16 +39,16 @@ configured: a group of `--steps_per_dispatch` steps replayed as a CUDA
 graph shows as the graph's kernels, without the ranges (pass
 `--steps_per_dispatch 1` for them at every step).
 
-    python -m gaussianavatar_torch.train ... --init flax
-    python -m gaussianavatar_torch.train ... --ragged 1 --auto_cascade 1
+    python -m gaussianavatar_torch.train ... [--init torch]
+    python -m gaussianavatar_torch.train ... [--ragged 0 --auto_cascade 0]
 
-`--init flax` draws the network as the JAX package's `init_state` does
-(flax's lecun_normal kernels, zero biases, from a generator seeded 0);
-the default `--init torch` keeps torch's own layer initialisation (from
-flax's the default campaign fails its gates, ROADMAP F20). `--ragged 1
---auto_cascade 1` train with the JAX loop's need table and adaptive
-footprint (engine/need_table.py), which the JAX CLI turns on by default
-above 256 queries and the port only when asked.
+The defaults are the JAX CLI's. The network starts as the JAX package's
+`init_state(PRNGKey(0))`, value for value (`--init flax`,
+models/init.py); `--init torch` takes torch's own layer initialisation.
+Above 256 queries training keeps the JAX loop's need table and adaptive
+footprint (engine/need_table.py: per-tile row caps from the saturation
+probe, the footprint M 9 <-> 4) unless `--ragged 0` or `--auto_cascade 0`
+is given (config.resolve_train_raster_defaults; the run prints a note).
 
     python -m gaussianavatar_torch.train ... --steps_per_dispatch 8
 
@@ -76,7 +76,10 @@ from argparse import ArgumentParser
 
 def parse_args(argv=None):
     """The command line -> (args, cfg)."""
-    from gaussianavatar_torch.config import build_parser, extract_config
+    from gaussianavatar_torch.config import (
+        build_parser, extract_config, resolve_train_raster_defaults,
+    )
+    from gaussianavatar_torch.models.avatar import DEFAULT_INIT, INITS
 
     parser = ArgumentParser(description="Training script parameters")
     build_parser(parser)
@@ -95,10 +98,12 @@ def parse_args(argv=None):
     parser.add_argument("--profile_dir", type=str, default=None)
     parser.add_argument("--dp", type=int, default=1)
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    parser.add_argument("--init", choices=("torch", "flax"), default="torch",
+    parser.add_argument("--init", choices=INITS, default=DEFAULT_INIT,
                         help="the network's initialisation (models/avatar.AvatarNet)")
     args = parser.parse_args(argv if argv is not None else sys.argv[1:])
-    return args, extract_config(args)
+    cfg = extract_config(args)
+    args.raster_notes = resolve_train_raster_defaults(cfg, args)
+    return args, cfg
 
 
 def main(argv=None, timeout_s=None):
@@ -143,6 +148,8 @@ def run_training(args, cfg):
         safe_state(args.quiet)
     torch.autograd.set_detect_anomaly(args.detect_anomaly)
     print(ignored_flags_note())
+    for note in getattr(args, "raster_notes", ()):
+        print(note)
     print("Optimizing " + cfg.model.model_path)
     lpips_fn, lpips_note = None, None
     if args.no_lpips:

@@ -14,6 +14,11 @@ from its epoch-E save; `--eval_after` evaluates every subject after
 training. Subject names are the data directories' basenames, suffixed where
 they collide.
 
+The defaults are the single-subject CLI's but for two (engine/multi_loop.py
+says why, ROADMAP F20): torch's initialisation (`--init torch`; `--init flax` draws subject s as
+the JAX `init_state(PRNGKey(s))`), and the whole-range blend at every
+query size (`--ragged 1 --auto_cascade 1` turn the need table on).
+
 `--dp N` spawns N ranks (parallel/mesh.py), each holding every subject and
 stepping it on its shard of the subject's global batch (parallel/grid.py);
 the JAX CLI asks for S x dp devices instead. Runs on the card unless
@@ -39,10 +44,11 @@ def subject_names(sources):
     return names
 
 
-def main(argv=None, timeout_s=None):
-    """`timeout_s` bounds a `--dp` run: its ranks are stopped and the call
-    raises if they have not all finished by then."""
-    from gaussianavatar_torch.config import build_parser, extract_config, ignored_flags_note
+def parse_args(argv=None):
+    """The command line -> (args, one cfg per subject)."""
+    from gaussianavatar_torch.config import build_parser, extract_config
+    from gaussianavatar_torch.engine.multi_loop import MULTI_SUBJECT_INIT
+    from gaussianavatar_torch.models.avatar import INITS
 
     parser = ArgumentParser(description="Multi-subject training parameters")
     build_parser(parser)
@@ -59,26 +65,32 @@ def main(argv=None, timeout_s=None):
                         help="evaluate every subject after training")
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    parser.add_argument("--init", choices=("torch", "flax"), default="torch",
+    parser.add_argument("--init", choices=INITS, default=MULTI_SUBJECT_INIT,
                         help="the networks' initialisation (engine/multi_loop.train_multi)")
     args = parser.parse_args(argv if argv is not None else sys.argv[1:])
-
-    out_root = args.model_path
-    if not out_root:
+    if not args.model_path:
         parser.error("-m/--model_path (output root) is required")
+    cfgs = []
+    for src, name in zip(args.sources, subject_names(args.sources)):
+        cfg = extract_config(args)
+        cfg.model.source_path = src
+        cfg.model.model_path = join(args.model_path, name)
+        cfgs.append(cfg)
+    return args, cfgs
 
+
+def main(argv=None, timeout_s=None):
+    """`timeout_s` bounds a `--dp` run: its ranks are stopped and the call
+    raises if they have not all finished by then."""
+    from gaussianavatar_torch.config import ignored_flags_note
     from gaussianavatar_torch.engine.inference import require_device
     from gaussianavatar_torch.engine.logging_utils import safe_state
     from gaussianavatar_torch.parallel import mesh
 
+    args, cfgs = parse_args(argv)
+    out_root = args.model_path
     require_device(args.device)
     names = subject_names(args.sources)
-    cfgs = []
-    for src, name in zip(args.sources, names):
-        cfg = extract_config(args)
-        cfg.model.source_path = src
-        cfg.model.model_path = join(out_root, name)
-        cfgs.append(cfg)
     mesh.check_batch(cfgs[0].model.batch_size, args.dp)
 
     saving_epochs = sorted(set(args.save_epochs + [cfgs[0].opt.epochs]))

@@ -1,8 +1,10 @@
 """The port's initial network at `init="flax"` (the CLIs' `--init flax`)
-against the JAX package's `init_state` (ROADMAP F19): the same
-distribution, since the two RNGs cannot give the same values. Small widths (c_geom 8, hsize 16-32, input posmap 16 in stage
-1 and 32 in stage 2, whose UNet halves it five times), both decoders, the
-'conv' and 'bottleneck' smoothers, stage 2's pose encoder with 'upconv'.
+against the JAX package's `init_state` (ROADMAP F19, F20): flax's
+distribution and, since the port draws from JAX's own random stream
+(models/init.py), JAX's values for the same seed. Small widths (c_geom 8,
+hsize 16-32, input posmap 16 in stage 1 and 32 in stage 2, whose UNet
+halves it five times), both decoders, the 'conv' and 'bottleneck'
+smoothers, stage 2's pose encoder with 'upconv'.
 
 For every leaf that `bridge.state_dict_from_jax` maps from a JAX
 `init_state`:
@@ -17,9 +19,9 @@ For every leaf that `bridge.state_dict_from_jax` maps from a JAX
     pooled by fan_in;
   - geo_feature's root mean square is 0.01 within the same bound;
   - the embeddings equal their initial poses.
-Then one seed gives the same state twice and two seeds different states,
-and `setup_avatar` (the CLIs' path) builds each initialisation it is
-asked for."""
+Then every leaf equals JAX's from the same seed, one seed gives the same
+state twice and two seeds different states, and `setup_avatar` (the CLIs'
+path) builds each initialisation it is asked for."""
 
 import math
 import os
@@ -129,6 +131,22 @@ def test_initial_state_is_flax_lecun_normal(body, case):
     _check_kernels(t_kernels, "port")
 
 
+@pytest.mark.parametrize("case", list(CASES))
+def test_initial_state_equals_jax_init_state(body, case):
+    """Every leaf of the port's seed-0 network equals JAX's init_state
+    (PRNGKey(0)) to 1e-5 of the leaf's largest |value|: the same keys, bits
+    and float32 arithmetic, but the inverse error function in float64 where
+    XLA's float32 one is off by an ulp or two (4.4e-6 measured, on
+    geo_feature's tails)."""
+    ja, J, poses = body
+    kw = dict(COMMON, **CASES[case])
+    pairs, _ = init_pairs(ja, J, kw, poses)
+    for key, path, a, t in pairs:
+        j = bridge.to_port(path, a).numpy()
+        np.testing.assert_allclose(t, j, rtol=0, atol=1e-5 * max(np.abs(j).max(), 1e-30),
+                                   err_msg=key)
+
+
 def test_initial_state_follows_the_seed(body):
     _, J, poses = body
     kw = dict(COMMON, **CASES["stage2-fused-bottleneck"])
@@ -137,9 +155,9 @@ def test_initial_state_follows_the_seed(body):
     a, again, other = make(3), make(3), make(4)
 
     def default():
-        """No generator: torch's default one (the CLIs pass one seeded 0 at
-        `--init flax`, engine/setup.setup_avatar, as JAX's init_state
-        defaults to PRNGKey(0))."""
+        """No generator: the seed of torch's default one (the CLIs pass a
+        generator seeded 0 at `--init flax`, engine/setup.setup_avatar, as
+        JAX's init_state defaults to PRNGKey(0))."""
         torch.manual_seed(0)
         return AvatarNet(pose_dim=J * 3, pose_init=poses, device="cpu", init="flax",
                          **kw).state_dict()
@@ -150,6 +168,28 @@ def test_initial_state_follows_the_seed(body):
         assert torch.equal(d1[key], d2[key]), key
         if key == "geo_feature" or (key.endswith("weight") and v.dim() > 1):
             assert not torch.equal(v, other[key]), key
+
+
+@pytest.mark.parametrize("seed", [0, 5, 2**32 - 1, 2**32 + 7, 2**40 + 3, 2**63 - 1])
+def test_prng_key_matches_jax(body, seed):
+    """models/init.prng_key(seed) is jax.random.PRNGKey(seed) as the JAX
+    package makes it (64-bit types off): seeds of 2**32 and more too, where
+    JAX keeps the low 32 bits. A generator with such a seed, as torch's
+    default one has after `torch.seed()`, draws the network of its low 32
+    bits."""
+    import jax
+
+    from gaussianavatar_torch.models.init import prng_key
+
+    assert not jax.config.jax_enable_x64
+    np.testing.assert_array_equal(prng_key(seed), np.asarray(jax.random.PRNGKey(seed)))
+    _, J, poses = body
+    kw = dict(COMMON, **CASES["stage1-ref-conv"])
+    make = lambda s: AvatarNet(pose_dim=J * 3, pose_init=poses, device="cpu", init="flax",
+                               generator=torch.Generator().manual_seed(s), **kw).state_dict()
+    big, low = make(seed), make(seed & 0xFFFFFFFF)
+    for key, v in big.items():
+        assert torch.equal(v, low[key]), key
 
 
 @pytest.mark.parametrize("init", ["torch", "flax"])

@@ -168,22 +168,63 @@ def test_network_probe_matches_jax(monkeypatch):
     ([], False), (["--ragged", "1"], False), (["--auto_cascade", "1"], False),
     (["--ragged", "1", "--auto_cascade", "1"], True),
     (["--query_posmap_size", "128", "--ragged", "1", "--auto_cascade", "1"], True),
-], ids=["q512", "ragged1", "cascade1", "both1", "q128_both1"])
+    (["--ragged", "0"], False), (["--query_posmap_size", "256"], False),
+], ids=["q512", "ragged1", "cascade1", "both1", "q128_both1", "ragged0", "q256"])
 def test_need_table_switch(argv, on):
     """The table runs where the JAX loop's does, `ragged` and `auto_cascade`
-    both set, and only when the flags ask for it: the port's CLIs keep the
-    whole-range blend at every query size (the JAX CLIs turn both flags on
-    above 256 queries, `resolve_train_raster_defaults`)."""
+    both set: on the flags as given (`on`), and after both packages' train
+    CLIs apply their defaults (`resolve_train_raster_defaults`: both on
+    above 256 queries unless given), where the port's switch follows the
+    JAX CLI's on every case."""
     from gaussianavatar_tpu import config as jconfig
 
     from gaussianavatar_torch import config as tconfig
 
     jargs = jconfig.build_parser().parse_args(argv)
     jcfg = jconfig.extract_config(jargs)
-    tcfg = tconfig.extract_config(tconfig.build_parser().parse_args(argv))
+    targs = tconfig.build_parser().parse_args(argv)
+    tcfg = tconfig.extract_config(targs)
     assert need_table.enabled(tcfg) == on
     # the JAX loop's own condition on the same flags, before its CLI defaults
     assert on == bool(jcfg.raster.ragged and jcfg.raster.auto_cascade)
+    j_notes = jconfig.resolve_train_raster_defaults(jcfg, jargs)
+    t_notes = tconfig.resolve_train_raster_defaults(tcfg, targs)
+    assert need_table.enabled(tcfg) == bool(jcfg.raster.ragged and jcfg.raster.auto_cascade)
+    assert (tcfg.raster.ragged, tcfg.raster.auto_cascade) == \
+        (jcfg.raster.ragged, jcfg.raster.auto_cascade)
+    assert len(t_notes) == len([n for n in j_notes if n.startswith("raster defaults")])
+
+
+@pytest.mark.parametrize("argv, table, init, notes", [
+    ([], True, "flax", 2), (["--ragged", "0"], False, "flax", 1),
+    (["--query_posmap_size", "256"], False, "flax", 0), (["--init", "torch"], True, "torch", 2),
+], ids=["defaults", "ragged0", "q256", "init_torch"])
+def test_train_cli_defaults(argv, table, init, notes):
+    """The train CLI's defaults are the JAX CLI's: flax's initial network,
+    and above 256 queries the need table, unless a flag says otherwise
+    (`--ragged 0` leaves auto_cascade's default, as in JAX); each default
+    it applies is printed as a note."""
+    from gaussianavatar_torch import train
+
+    args, cfg = train.parse_args(["-s", "/data", "-m", "/out"] + argv)
+    assert need_table.enabled(cfg) == table and args.init == init
+    assert len(args.raster_notes) == notes
+
+
+@pytest.mark.parametrize("argv, table, init", [
+    ([], False, "torch"), (["--init", "flax", "--ragged", "1", "--auto_cascade", "1"], True,
+                           "flax"),
+], ids=["defaults", "asked"])
+def test_train_multi_cli_defaults(argv, table, init):
+    """train_multi keeps torch's initialisation and the whole-range blend at
+    512 queries unless asked (engine/multi_loop.MULTI_SUBJECT_INIT: its
+    subjects s >= 1 draw PRNGKey(s), ROADMAP F20), for every subject."""
+    from gaussianavatar_torch import train_multi
+
+    args, cfgs = train_multi.parse_args(["--sources", "/a", "/b", "-m", "/out"] + argv)
+    assert args.init == init and len(cfgs) == 2
+    assert [need_table.enabled(c) for c in cfgs] == [table, table]
+    assert [c.model.model_path for c in cfgs] == ["/out/a", "/out/b"]
 
 
 def test_footprint_rule():

@@ -264,6 +264,14 @@ def test_cfg_args_interoperate(tmp_path):
     assert "ragged_budget" in note and "tile_capacity" in note and "tile_size" not in note
     # the need table's switches are read (engine/need_table.py)
     assert "auto_cascade" not in note and "train_footprint_eps" not in note
+    # the train CLIs' defaults are the JAX CLI's: at the default 512 queries
+    # the resolved cfg_args agree, the need table on in both
+    jargs, targs = jp.parse_args(["-s", "/data"]), tconfig.build_parser().parse_args(["-s", "/data"])
+    jcfg, tcfg = jconfig.extract_config(jargs), tconfig.extract_config(targs)
+    jconfig.resolve_train_raster_defaults(jcfg, jargs)
+    tconfig.resolve_train_raster_defaults(tcfg, targs)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert tcfg.raster.ragged == tcfg.raster.auto_cascade == 1
 
 
 def test_startup_note_names_every_flag_the_port_ignores():
