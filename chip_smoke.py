@@ -72,8 +72,9 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      the need table and the adaptive footprint (cfg_args shows both on;
      H-fwd once per step and once per probe batch, H-bwd once per step,
      both held against their plain versions on the last batch, its caps
-     included; every other training run keeps torch's initialisation and
-     the whole-range blend, `CALIBRATED_FLAGS`); (b) one 1024^2
+     included; the other training runs but phase 10 (c)'s and phase 12
+     (e)'s keep torch's initialisation and the whole-range blend,
+     `CALIBRATED_FLAGS`); (b) one 1024^2
      view of 20,000 gaussians at SH degree 3 through `ops/rasterize.
      rasterize` (H-fwd once, held against the plain blend; H-bwd once; the
      coefficients' gradient against the CPU's plain path); (c) 5 steps
@@ -103,7 +104,14 @@ Phases, each of which must pass (the script exits nonzero otherwise):
      rank 0's last H-fwd and H-bwd inputs in each sound run held against
      the plain versions; the ranks' launches summed from metrics.jsonl,
      exact. Two ranks that share one card measure what the sharing
-     costs, not scaling;
+     costs, not scaling; (c) `train_multi` with no training flag but the
+     data's (the JAX CLI's defaults: flax's PRNGKey(s) network for subject
+     s, the need table at 512 queries) on two copies of the quality gate's
+     subject (48 frames of 512^2), 25 steps, one past the epoch-1 retune:
+     each subject's init and cfg_args, its retune reading (the clip
+     fraction at M=4, the drift), the shared footprint against the JAX
+     rule on the worst subject's reading, and the probe batches (2 x (24
+     + 24)) and launches exact;
  11. the fused POP decoder (`--fused_decoder 1`), the launch counts read
      around each entry point: (a) its three kernels, H-dstat
      (csrc/decoder_stats.cu), H-dfwd (csrc/decoder_stage_fwd.cu) and H-dbwd
@@ -674,8 +682,8 @@ def phase_bwd_random_scene(device, card):
 # The phases' launch counts, holds and limits were set on torch's
 # initialisation and the whole-range blend, the train CLIs' defaults before
 # they took the JAX CLI's (flax's init, the need table above 256 queries):
-# they keep them, given explicitly. Phase 9's need-table run trains on the
-# defaults.
+# they keep them, given explicitly. Phase 9's need-table run, phase 10 (c)
+# and phase 12 (e) train on the defaults.
 CALIBRATED_FLAGS = ["--init", "torch", "--ragged", "0", "--auto_cascade", "0"]
 
 
@@ -1775,10 +1783,108 @@ def _bn_apart(a, b):
                      / sa[k].double().abs().max().clamp_min(1e-30)) for k in keys)
 
 
+# (c): train_multi on its defaults, two copies of the quality gate's
+# subject (48 frames of 512^2, 24 steps an epoch), one step past the
+# epoch-1 retune
+MULTI_DEFAULT_STEPS = 48 // 2 + 1
+
+
+def _gate_data(device, work):
+    """scripts/torch_quality_gate.py's subject (48 training frames of 512^2,
+    the 48 x 32 body), written once under `work` -> its directory."""
+    from gaussianavatar_torch.data.synthetic_writer import write_synthetic_dataset
+
+    gate = os.path.join(work, "data48_gate")
+    if not os.path.exists(os.path.join(gate, "train", "smpl_parms.pth")):
+        write_synthetic_dataset(gate, n_train=48, n_test=2, image_size=512,
+                                body_kwargs=GATE_BODY, device=device)
+    return gate
+
+
+def _footprint_rule(frac, cur_m, m_full, m_target, eps):
+    """The JAX multi-subject loop's footprint rule, transcribed
+    (gaussianavatar_tpu/engine/multi_loop.py:287-294)."""
+    if frac is None:
+        return cur_m
+    if cur_m > m_target and frac <= eps:
+        return m_target
+    if cur_m < m_full and frac >= 3.0 * eps:
+        return m_full
+    return cur_m
+
+
+def _multi_defaults(device, card, work):
+    """Phase 10 (c): `train_multi` with no training flag but the data's, on
+    two copies of the gate's subject (subjects 0 and 1: JAX's PRNGKey(0)
+    and PRNGKey(1) networks), through the epoch-1 retune. Fails unless each
+    subject ran flax's draw from its own key with the need table on, each
+    retune reading is logged, the shared footprint is the JAX rule's on the
+    worst subject's reading, and the probe batches are 2 x (24 + 24).
+    -> launches."""
+    from gaussianavatar_torch import train_multi
+    from gaussianavatar_torch.config import Config
+
+    t_phase = time.perf_counter()
+    gate = _gate_data(device, work)
+    t_data = time.perf_counter() - t_phase
+    out = os.path.join(work, "multi_defaults")
+    S = 2
+    _, counts, wall = _run_counted(train_multi.main, [
+        "--sources", gate, gate, "-m", out, "--dataset_type", "synthetic",
+        "--max_steps", str(MULTI_DEFAULT_STEPS)])
+    dirs = [os.path.join(out, n) for n in train_multi.subject_names([gate, gate])]
+    probes = _check_train_launches("train_multi on its defaults", counts,
+                                   S * MULTI_DEFAULT_STEPS, dirs[0])
+    batches = -(-48 // 2)
+    if probes != S * (batches + batches):
+        _fail(f"train_multi on its defaults probed {probes} batches, not {S} subjects x "
+              f"({batches} before epoch 1 + {batches} at its retune)")
+    readings, shared = [], []
+    for s, d in enumerate(dirs):
+        raster = Config.load(os.path.join(d, "cfg_args.json")).raster
+        records = [json.loads(line) for line in open(os.path.join(d, "metrics.jsonl"))]
+        events = [(r["event"], r["value"]) for r in records if "event" in r]
+        names = [e for e, _ in events]
+        init = dict(events).get("init")
+        if not (raster.ragged and raster.auto_cascade) or init != f"flax PRNGKey({s})":
+            _fail(f"train_multi on its defaults, subject {s}: init {init!r}, ragged "
+                  f"{raster.ragged}, auto_cascade {raster.auto_cascade}: not the JAX CLI's "
+                  "defaults")
+        if names.count("ragged_retune") != 1:
+            _fail(f"train_multi on its defaults, subject {s}: {names.count('ragged_retune')} "
+                  "retune readings logged, not the epoch-1 retune's one")
+        at = names.index("ragged_retune")
+        readings.append(events[at][1])
+        # the footprint before the retune and after it, from the switches logged
+        m = lambda evs: int(evs[-1][1].split()[1]) if evs else raster.max_tiles_per_gaussian
+        adapts = [(i, v) for i, (e, v) in enumerate(events) if e == "footprint_adapt"]
+        shared.append((m([a for a in adapts if a[0] < at]), m(adapts),
+                       (raster.max_tiles_per_gaussian, raster.render_max_tiles_per_gaussian,
+                        raster.train_footprint_eps)))
+        print(f"  subject {s} (flax PRNGKey({s})): epoch-1 retune clip fraction at M="
+              f"{raster.render_max_tiles_per_gaussian} {readings[-1]['clip_frac_m4']:.4e}, "
+              f"drift {readings[-1]['drift']:.4e}; startup {dict(events)['ragged_need_bank']}")
+    if len(set(shared)) != 1:
+        _fail(f"train_multi on its defaults: the subjects' footprints differ ({shared})")
+    before, after, (m_full, m_target, eps) = shared[0]
+    worst = max(r["clip_frac_m4"] for r in readings)
+    want = _footprint_rule(worst, before, m_full, m_target, eps)
+    print(f"  shared footprint: M={before} before the retune, M={after} after it; the JAX rule "
+          f"on the worst subject's {worst:.4e} (eps {eps:g}) gives M={want}; launches {counts} "
+          f"({probes} probe batches); {wall:.1f} s in all (setup included; the data "
+          f"{t_data:.1f} s), on {card}")
+    if after != want:
+        _fail(f"train_multi on its defaults: the shared footprint M={after} is not the JAX "
+              f"rule's M={want} on the worst subject's reading {worst:.4e}")
+    print(f"  (c) in {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def phase_scale_out(device, card, work, train_stats):
     """Phase 10: (a) multi-subject training, resume and eval; (b) --dp 2 on
-    the one card against --dp 1, stages 1 and 2. -> (H-fwd's error, H-bwd's
-    error, launches)."""
+    the one card against --dp 1, stages 1 and 2; (c) train_multi on its
+    defaults through the epoch-1 retune (_multi_defaults). -> (H-fwd's
+    error, H-bwd's error, launches)."""
     import shutil
 
     import torch
@@ -1964,6 +2070,9 @@ def phase_scale_out(device, card, work, train_stats):
             _fail(f"{what}: the control run ({broken:.2e}) is within the limit {tol:g}, which "
                   "therefore separates nothing")
     print(f"  (b) in {time.perf_counter() - t_phase:.1f} s")
+
+    # (c) train_multi on its defaults through the epoch-1 retune
+    add(_multi_defaults(device, card, work))
     return fwd_err, bwd_err, total
 
 
@@ -2837,11 +2946,8 @@ def _dispatch_defaults(device, work, run, out):
     S=1, and a control whose retune leaves the startup caps in the table.
     `run` and `out` are phase_dispatch's. -> its checks."""
     from gaussianavatar_torch.config import Config
-    from gaussianavatar_torch.data.synthetic_writer import write_synthetic_dataset
 
-    gate = os.path.join(work, "data48_gate")
-    write_synthetic_dataset(gate, n_train=SPD_FRAMES, n_test=2, image_size=512,
-                            body_kwargs=GATE_BODY, device=device)
+    gate = _gate_data(device, work)
     defaults = lambda o: ["-s", gate, "-m", o, "--train_stage", "1", "--dataset_type",
                           "synthetic", "--no_lpips"]
     with _deterministic():
@@ -3050,7 +3156,8 @@ def main():
         p9_fwd_err, p9_bwd_err, p9_counts = phase_train_terms(device, card, work, train_stats)
         print(f"  phase 9 in {time.perf_counter() - t9:.1f} s")
         print("phase 10: the scale-out entry points: 4 subjects through train_multi, resume "
-              "and eval; --dp 2 on the one card against --dp 1, stages 1 and 2")
+              "and eval; --dp 2 on the one card against --dp 1, stages 1 and 2; train_multi "
+              "on its defaults through the epoch-1 retune")
         t10 = time.perf_counter()
         p10_fwd_err, p10_bwd_err, p10_counts = phase_scale_out(device, card, work, train_stats)
         print(f"  phase 10 in {time.perf_counter() - t10:.1f} s")

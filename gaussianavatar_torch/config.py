@@ -262,8 +262,7 @@ def resolve_train_raster_defaults(cfg: Config, args: Optional[Namespace] = None)
     `auto_cascade` default to 1 (the need table and the adaptive
     footprint, engine/need_table.py) unless given on the command line
     (`--ragged 0` or `--auto_cascade 0` opts out). Called by the `train`
-    CLI after `extract_config` (`train_multi` keeps the whole-range blend
-    unless asked, engine/multi_loop.py)."""
+    and `train_multi` CLIs after `extract_config`."""
     notes = []
     explicit = lambda name: args is not None and getattr(args, name, None) is not None
     r, q = cfg.raster, cfg.model.query_posmap_size

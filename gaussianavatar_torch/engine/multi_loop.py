@@ -24,25 +24,19 @@ says so in one warning line (ROADMAP F14). A resumed run takes the saves
 as they are: the JAX multi-subject loop runs `stage_load` only on a fresh
 start.
 
-With `--ragged 1 --auto_cascade 1` every subject keeps its own need table
-and the subjects share one footprint, decided by the worst subject's clip
-fraction, as in the JAX loop (engine/need_table.py; the JAX CLI turns them
-on by default above 256 queries, the port's train_multi only when asked,
-see below). Left out, as in the single-subject loop: the rest of the JAX
-loop's capacity machinery (the shared chunk budget, tier pooling, fairness
-telemetry).
+Above 256 queries by default (`train_multi.parse_args` applies the JAX
+CLI's `config.resolve_train_raster_defaults` to every subject), or with
+`--ragged 1 --auto_cascade 1`, every subject keeps its own need table and
+the subjects share one footprint, decided by the worst subject's clip
+fraction, as in the JAX loop (engine/need_table.py). Left out, as in the
+single-subject loop: the rest of the JAX loop's capacity machinery (the
+shared chunk budget, tier pooling, fairness telemetry).
 
 `init` picks the networks' initialisation (engine/setup.setup_avatar):
-"torch" (MULTI_SUBJECT_INIT, the default here and in the CLI) draws them
-one subject after the other from torch's default generator, "flax" subject
-s as the JAX `init_state(..., rng=PRNGKey(s))`. Unlike the single-subject
-path, this one keeps torch's initialisation and the whole-range blend by
-default: subject s draws PRNGKey(s), and on the card the epoch-1 retunes
-from PRNGKey(1)'s and PRNGKey(5)'s draws left the footprint at M=9 where
-PRNGKey(0)'s switched it to 4 (ROADMAP F20). The subjects share the worst
-one's footprint, so every subject of two or more is expected to train in
-the regime whose campaigns failed their gates (no multi-subject run on
-those settings has been measured).
+"flax" (models/avatar.DEFAULT_INIT, the default here and in the CLI, as in
+the single-subject path) draws subject s as the JAX
+`init_state(..., rng=PRNGKey(s))`, as the JAX loop does; "torch" draws
+them one subject after the other from torch's default generator.
 """
 
 from __future__ import annotations
@@ -68,20 +62,15 @@ from gaussianavatar_torch.engine.loop import (
 from gaussianavatar_torch.engine.optim import build_optimizer
 from gaussianavatar_torch.engine.setup import setup_avatar
 from gaussianavatar_torch.engine.train_step import TrainState
+from gaussianavatar_torch.models.avatar import DEFAULT_INIT
 from gaussianavatar_torch.ops.rasterize import raster_config
 from gaussianavatar_torch.parallel import mesh
 from gaussianavatar_torch.parallel.grid import make_grid_step
 from gaussianavatar_torch.parallel.multi_subject import Subject, check_subjects
 from gaussianavatar_torch.utils.cuda_build import LAUNCHES, launches_since
 
-# the networks' initialisation multi-subject training takes by default (see
-# the module's docstring; the single-subject default is
-# models/avatar.DEFAULT_INIT)
-MULTI_SUBJECT_INIT = "torch"
-
-
 def build_subjects(cfgs: Sequence[Config], device: str,
-                   init: str = MULTI_SUBJECT_INIT) -> tuple:
+                   init: str = DEFAULT_INIT) -> tuple:
     """-> (subjects, loaders, steps_per_epoch): every subject's bundle, GT
     bank (stage 2: posmap bank) and TrainState on `device`, its network
     initialised by `init` and its loader seeded with its index, and the
@@ -109,7 +98,7 @@ def train_multi(
     checkpoint_epochs: Sequence[int] = (),
     device: str = "cuda",
     max_steps: Optional[int] = None,
-    init: str = MULTI_SUBJECT_INIT,
+    init: str = DEFAULT_INIT,
 ) -> List[TrainState]:
     """Train len(cfgs) subjects in lockstep; each cfg carries its own
     source_path and model_path, the rest is the first subject's. Stops once
@@ -214,7 +203,10 @@ def train_multi(
             ckpt.save_stacked_checkpoint(model_paths, min(epoch, opt.epochs), states)
         # the whole run's launches (every subject, every rank) in each subject's log
         launches = mesh.sum_counts(launches_since(launches_before), grp)
-        for logger in loggers:
+        for s, logger in enumerate(loggers):
+            # the networks' initialisation (a resumed or stage-2 run loads
+            # its weights over it)
+            logger.log_event("init", f"flax PRNGKey({s})" if init == "flax" else init)
             if tables:
                 # every subject's probes, as the launches below are every subject's
                 logger.log_event("need_table_probes", sum(t.probes for t in tables))

@@ -173,15 +173,24 @@ def update(tables: Sequence[NeedTable], loggers, epoch: Optional[int] = None) ->
     """Refill every subject's table, then one footprint for them all, from
     the worst subject's clip fraction (the JAX multi-subject loop's rule;
     one subject: its own), before the first epoch with `epoch` None, else
-    at the retune after `epoch`. Each subject's logger gets the events.
-    -> whether M changed (the step must be rebuilt)."""
+    at the retune after `epoch`. Each subject's logger gets the events, at a
+    retune its own reading too (`ragged_retune`: its clip fraction at the
+    candidate footprint and its drift). -> whether M changed (the step must
+    be rebuilt)."""
     first = not tables[0].built
     fracs, drift = [], [0, 0]
-    for t in tables:
+    for s, (t, lg) in enumerate(zip(tables, loggers)):
         frac, d = t.refill()
         fracs.append(frac)
         if d is not None:
             drift = [drift[0] + d[0], drift[1] + d[1]]
+            # the subject's own reading, of which the footprint takes the worst
+            own = {"clip_frac_m4": frac, "drift": d[0] / max(d[1], 1)}
+            lg.log_event("ragged_retune", own)
+            if len(tables) > 1:
+                print(f"subject {s} retune: candidate clip fraction "
+                      + ("n/a" if frac is None else f"{frac:.3e}")
+                      + f", need drift {own['drift']:.3e}")
     if not first:
         # the pairs whose need outgrew the caps of the last window: what the
         # margin failed to cover

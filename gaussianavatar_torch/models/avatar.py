@@ -109,9 +109,7 @@ def build_avatar_assets(
 
 
 # the initialisations AvatarNet offers, and the one it, setup_avatar, the
-# training loop and the train CLI take by default: the JAX package's
-# (ROADMAP F20; the multi-subject path keeps torch's,
-# engine/multi_loop.MULTI_SUBJECT_INIT)
+# training loops and the training CLIs take by default: the JAX package's
 INITS = ("torch", "flax")
 DEFAULT_INIT = "flax"
 

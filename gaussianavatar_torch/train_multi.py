@@ -14,10 +14,12 @@ from its epoch-E save; `--eval_after` evaluates every subject after
 training. Subject names are the data directories' basenames, suffixed where
 they collide.
 
-The defaults are the single-subject CLI's but for two (engine/multi_loop.py
-says why, ROADMAP F20): torch's initialisation (`--init torch`; `--init flax` draws subject s as
-the JAX `init_state(PRNGKey(s))`), and the whole-range blend at every
-query size (`--ragged 1 --auto_cascade 1` turn the need table on).
+The defaults are the JAX CLI's, as in the single-subject CLI: subject s
+starts from the JAX `init_state(PRNGKey(s))` (`--init flax`; `--init
+torch` takes torch's layer defaults), and above 256 queries every subject
+trains on its own need table with the footprint of the worst subject
+(config.resolve_train_raster_defaults, applied to every subject; the notes
+are printed once; `--ragged 0` or `--auto_cascade 0` opts out).
 
 `--dp N` spawns N ranks (parallel/mesh.py), each holding every subject and
 stepping it on its shard of the subject's global batch (parallel/grid.py);
@@ -45,10 +47,13 @@ def subject_names(sources):
 
 
 def parse_args(argv=None):
-    """The command line -> (args, one cfg per subject)."""
-    from gaussianavatar_torch.config import build_parser, extract_config
-    from gaussianavatar_torch.engine.multi_loop import MULTI_SUBJECT_INIT
-    from gaussianavatar_torch.models.avatar import INITS
+    """The command line -> (args, one cfg per subject), each cfg resolved
+    to the JAX CLI's raster defaults; their notes (the same flags for every
+    subject) in `args.raster_notes`."""
+    from gaussianavatar_torch.config import (
+        build_parser, extract_config, resolve_train_raster_defaults,
+    )
+    from gaussianavatar_torch.models.avatar import DEFAULT_INIT, INITS
 
     parser = ArgumentParser(description="Multi-subject training parameters")
     build_parser(parser)
@@ -65,7 +70,7 @@ def parse_args(argv=None):
                         help="evaluate every subject after training")
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    parser.add_argument("--init", choices=INITS, default=MULTI_SUBJECT_INIT,
+    parser.add_argument("--init", choices=INITS, default=DEFAULT_INIT,
                         help="the networks' initialisation (engine/multi_loop.train_multi)")
     args = parser.parse_args(argv if argv is not None else sys.argv[1:])
     if not args.model_path:
@@ -73,9 +78,11 @@ def parse_args(argv=None):
     cfgs = []
     for src, name in zip(args.sources, subject_names(args.sources)):
         cfg = extract_config(args)
+        notes = resolve_train_raster_defaults(cfg, args)
         cfg.model.source_path = src
         cfg.model.model_path = join(args.model_path, name)
         cfgs.append(cfg)
+    args.raster_notes = notes
     return args, cfgs
 
 
@@ -98,6 +105,8 @@ def main(argv=None, timeout_s=None):
     try:
         if not args.quiet:
             print(ignored_flags_note())
+            for note in args.raster_notes:
+                print(note)
             print(f"Optimizing {len(cfgs)} subjects into {out_root} "
                   f"({len(cfgs)} subjects x dp {args.dp}): {', '.join(names)}")
         run_args = (cfgs, saving_epochs, args.checkpoint_epochs, args.device, args.max_steps,

@@ -1,9 +1,10 @@
 """The port's first epoch from flax's initial network, held against the
 JAX package's step by step on the CPU (ROADMAP F20).
 
-Both packages start from one JAX `init_state(..., rng=PRNGKey(0))`, carried
-into the port by `gaussianavatar_torch.bridge` (flax's initialisation on
-both sides), and train one epoch of the quality gate's synthetic subject
+Both packages start from one JAX `init_state(..., rng=PRNGKey(K))`
+(`--jax_key K`, 0 by default), carried into the port by
+`gaussianavatar_torch.bridge` (flax's initialisation on both sides), and
+train one epoch of the quality gate's synthetic subject
 (48 train frames, `body_kwargs` n_rings 48, n_cols 32; B=2, so 24 steps)
 with the campaign's schedules (`--epochs 200`), the need table and the
 footprint M=9 on both sides:
@@ -52,6 +53,9 @@ largest distances, then one JSON line.
     python3 scripts/torch_jax_epoch1.py --work output/f20 --out docs/f20 \
         [--image 256 --tile 16 --query 512 --inp 128 --hsize 128 --c_geom 64]
     python3 scripts/torch_jax_epoch1.py ... --runs jax_f32     # JAX's trail only
+    python3 scripts/torch_jax_epoch1.py ... --jax_key 1        # from PRNGKey(1)
+    python3 scripts/torch_jax_epoch1.py ... --loader_seed 1    # train_multi subject 1's order
+    python3 scripts/torch_jax_epoch1.py ... --runs step1       # step 1, capped and not
 
 At 256^2 with 16 px tiles the canonical footprint in tiles is kept (512^2
 at 32 px). A JAX run takes 8-14 minutes on 4 cores and 2-3 GB; the runs
@@ -68,8 +72,9 @@ they run on the CPU.
 
 runs the port alone on the card (no JAX there): one epoch per variant, the
 f32 or bf16 decoder, from the JAX initial weights a CPU run wrote
-(`init.pkl`, any image size at the same widths) or from the port's own
-`--init flax` draw, with the same readings; `<out>/card_<size>.json`.
+(`init.pkl`, any image size at the same widths; `--perturb_seed N`: as the
+control jax_f32_pN perturbs them) or from the port's own `--init flax`
+draw, with the same readings; `<out>/card_<size>.json`.
 """
 
 import argparse
@@ -78,6 +83,7 @@ import json
 import math
 import os
 import pickle
+import resource
 import sys
 import time
 from os.path import join
@@ -106,10 +112,15 @@ COUNTS = ("raster_overflow", "m_dropped", "truncated")
 # float32 noise: the two packages pose the gaussians with LBS summed in
 # other orders, so no distance below this parts them, whatever the band
 NOISE = 1e-4
+# the JAX config's train_footprint_eps: the retune's M=4 threshold
+FOOTPRINT_EPS = 1e-3
 
 
 def size_name(a) -> str:
-    return f"img{a.image}_t{a.tile}_q{a.query}_i{a.inp}_h{a.hsize}_c{a.c_geom}"
+    """The size's name; a JAX key or a loader seed other than 0 is added to it."""
+    key, seed = getattr(a, "jax_key", 0), getattr(a, "loader_seed", 0)
+    return (f"img{a.image}_t{a.tile}_q{a.query}_i{a.inp}_h{a.hsize}_c{a.c_geom}"
+            + (f"_jaxkey{key}" if key else "") + (f"_loader{seed}" if seed else ""))
 
 
 def cli_flags(a, data, bf16: int):
@@ -122,15 +133,30 @@ def cli_flags(a, data, bf16: int):
             "--ragged", "1", "--auto_cascade", "1"]
 
 
+def perturbed(tree, seed: int):
+    """A numpy tree of JAX parameters times (1 + PERTURB N(0, 1)), float32,
+    drawn leaf by leaf in sorted key order: JaxRun's `perturb_seed` on its
+    `jax.tree.map`, value for value, with no JAX."""
+    rng = np.random.default_rng(seed)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        return np.asarray(t) * (1.0 + PERTURB * rng.standard_normal(np.shape(t))).astype(
+            np.float32)
+    return walk(tree)
+
+
 def quantiles(x: np.ndarray) -> dict:
     x = np.asarray(x, np.float64).reshape(-1)
     return {"p50": float(np.quantile(x, 0.5)), "p99": float(np.quantile(x, 0.99)),
             "max": float(x.max())}
 
 
-def epoch_order():
-    """Epoch 1's batches: the loaders' first permutation (seed 0)."""
-    order = np.random.default_rng(0).permutation(N_TRAIN)
+def epoch_order(seed: int = 0):
+    """Epoch 1's batches: the first permutation of a loader seeded `seed`
+    (0 in `train`; subject s of `train_multi` is seeded s)."""
+    order = np.random.default_rng(seed).permutation(N_TRAIN)
     return [order[i * B:(i + 1) * B] for i in range(STEPS)]
 
 
@@ -195,8 +221,8 @@ class JaxRun:
             def init(self, p):
                 return None
 
-        state = init_state(bundle.net, bundle.assets, _TX0(), rng=jax.random.PRNGKey(0),
-                           batch_size=B)
+        state = init_state(bundle.net, bundle.assets, _TX0(),
+                           rng=jax.random.PRNGKey(getattr(a, "jax_key", 0)), batch_size=B)
         if perturb_seed:
             rng = np.random.default_rng(perturb_seed)
             state = state.replace(params=jax.tree.map(
@@ -487,7 +513,7 @@ def init_run(a, work, data):
     return init
 
 
-def epoch1(run, name, caps, margin, capacity):
+def epoch1(run, name, caps, margin, capacity, loader_seed=0):
     """One epoch of `run` (JaxRun or PortRun) fed `caps` -> its records:
     per step the readings, and at CHECKPOINTS the eval-mode scales and the
     run's own probe (drift against `caps`)."""
@@ -499,7 +525,7 @@ def epoch1(run, name, caps, margin, capacity):
     w_rgl = adjust_loss_weights(opt.lambda_rgl, 1, "decay", 0, 20)
     gate = pose_opt_gate_value(1, 1, opt)
     steps, checks = [], {}
-    for s, idxs in enumerate(epoch_order(), start=1):
+    for s, idxs in enumerate(epoch_order(loader_seed), start=1):
         scales = run.decode_scales(True)
         terms, drop = run.step(idxs, w_rgl, gate)
         rec = {"step": s, **{k: terms[k] for k in TERMS},
@@ -535,7 +561,7 @@ def train_run(a, work, data, name, init):
         run = JaxRun(a, data, bf16=int(name == "jax_bf16"), perturb_seed=seed)
         budget = run.set_caps(init["caps"])
         print(f"{name}: chunk budget {budget} rows/tile", flush=True)
-    out = epoch1(run, name, init["caps"], init["margin"], init["capacity"])
+    out = epoch1(run, name, init["caps"], init["margin"], init["capacity"], a.loader_seed)
     if name == "jax_f32":
         out["state"] = run.trees()
     pickle.dump(out, open(path, "wb"))
@@ -557,7 +583,9 @@ def card_runs(a, data):
         prec, weights = variant.split("_")
         if weights == "jaxinit" and init is None:
             raise SystemExit(f"{variant} needs --init_pkl")
-        run = PortRun(a, data, *((init["params"], init["stats"]) if weights == "jaxinit"
+        params = init and (perturbed(init["params"], a.perturb_seed) if a.perturb_seed
+                           else init["params"])
+        run = PortRun(a, data, *((params, init["stats"]) if weights == "jaxinit"
                                  else (None, None)), device=a.device, bf16=int(prec == "bf16"),
                       seed=a.port_seed)
         raw, clip, caps = run.startup_caps()
@@ -567,7 +595,7 @@ def card_runs(a, data):
         run.caps.copy_(torch.as_tensor(caps))
         print(f"{variant}: startup probe {json.dumps(startup)}; caps from "
               f"{'the init file' if same and weights == 'jaxinit' else 'this probe'}", flush=True)
-        rec = epoch1(run, variant, caps, run.margin, run.capacity)
+        rec = epoch1(run, variant, caps, run.margin, run.capacity, a.loader_seed)
         rec["startup"] = startup
         rec["checks"][STEPS].pop("raw", None)
         for r in rec["steps"]:
@@ -579,13 +607,26 @@ def card_runs(a, data):
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read().strip()
     os.makedirs(a.out, exist_ok=True)
     json.dump({"size": size_name(a), "card": smi, "init_pkl": a.init_pkl,
-               "port_seed": a.port_seed, "runs": out},
+               "port_seed": a.port_seed, "loader_seed": a.loader_seed,
+               "perturb_seed": a.perturb_seed, "runs": out},
               open(join(a.out, f"card_{size_name(a)}{a.tag}.json"), "w"), indent=1)
     for v, rec in out.items():
-        c = rec["checks"][STEPS]
-        print(f"{v}: mean raw scale at steps 1/8/16/24 " + " / ".join(
-            f"{r['scale_mean']:.4f}" for r in rec["steps"] if r["step"] in (1, 8, 16, 24))
-            + f"; retune clip at M=4 {c['clip_frac_m4']:.3e}, drift {c['drift']:.3e}")
+        print(trail(v, rec))
+
+
+def trail(name: str, rec) -> str:
+    """A run's retune trail: the clip fraction at M=4 after steps 8 / 16 /
+    24, the mean raw scale after steps 1 / 8 / 16 / 24, the drift at the
+    retune and the footprint the JAX loop's rule picks there
+    (gaussianavatar_tpu/engine/multi_loop.py:287-294: M 9 -> 4 where the
+    clip fraction is at most `train_footprint_eps`)."""
+    c = rec["checks"]
+    clip = c[STEPS]["clip_frac_m4"]
+    return (f"{name}: clip at M=4 " + " / ".join(f"{c[s]['clip_frac_m4']:.3g}"
+                                                 for s in CHECKPOINTS)
+            + "; mean raw scale " + " / ".join(f"{r['scale_mean']:.4f}" for r in rec["steps"]
+                                               if r["step"] in (1,) + CHECKPOINTS)
+            + f"; drift {c[STEPS]['drift']:.4f}; M {M_CAND if clip <= FOOTPRINT_EPS else M_FULL}")
 
 
 def absorbed(name: str) -> bool:
@@ -593,6 +634,13 @@ def absorbed(name: str) -> bool:
     so each package's is float noise (tests/test_torch_train.py)."""
     return (name.startswith("pop.decoder.dense.") and name.endswith(".bias")
             and name.split(".")[3] not in ("7", "10", "13"))
+
+
+def grad_distance(p, j) -> float:
+    """A port parameter's gradient against JAX's `j`: the largest
+    difference over JAX's largest |gradient|."""
+    g = torch.zeros_like(p) if p.grad is None else p.grad
+    return float((g - j).abs().max()) / max(float(j.abs().max()), 1e-30)
 
 
 def anchored_run(a, work, data, init):
@@ -619,7 +667,7 @@ def anchored_run(a, work, data, init):
     w_rgl = adjust_loss_weights(opt.lambda_rgl, 1, "decay", 0, 20)
     gate = pose_opt_gate_value(1, 1, opt)
     steps = []
-    for s, idxs in enumerate(epoch_order(), start=1):
+    for s, idxs in enumerate(epoch_order(a.loader_seed), start=1):
         before = jax_run.state_dict()
         j_grad = jax_run.gradients(idxs, w_rgl, gate)
         port.load(before, s - 1)
@@ -631,8 +679,7 @@ def anchored_run(a, work, data, init):
         for n, p in port.net.named_parameters():
             if absorbed(n):
                 continue
-            g = torch.zeros_like(p) if p.grad is None else p.grad
-            d = float((g - j_grad[n]).abs().max()) / max(float(j_grad[n].abs().max()), 1e-30)
+            d = grad_distance(p, j_grad[n])
             du_j, du_t = after[n] - before[n], t_sd[n] - before[n]
             u = float((du_t - du_j).norm()) / max(float(du_j.norm()), 1e-30)
             rec["grad"] = max(rec["grad"], (d, n))
@@ -650,6 +697,44 @@ def anchored_run(a, work, data, init):
                                                  for k in ("grad", "update", "stat", "term"))
               + f" ({time.time() - t0:.0f} s)", flush=True)
     out = {"steps": steps, "seconds": time.time() - t0}
+    pickle.dump(out, open(path, "wb"))
+    return out
+
+
+def step1_caps(a, work, data, init):
+    """Step 1 from the initial state, the port's gradient against JAX's on
+    the same batch, fed the startup caps and then `--step1_cap` rows a
+    tile: per leaf the largest relative distance (the four worst), both
+    packages' overflow counts and totals. Separates what the caps' cut
+    does to a difference in the pairs binned from the step map itself."""
+    path = join(work, f"step1_cap{a.step1_cap}.pkl")
+    if os.path.exists(path):
+        return pickle.load(open(path, "rb"))
+    from gaussianavatar_torch.config import OptimizationParams
+    from gaussianavatar_torch.engine.loop import adjust_loss_weights, pose_opt_gate_value
+
+    opt = OptimizationParams(epochs=200)
+    w_rgl = adjust_loss_weights(opt.lambda_rgl, 1, "decay", 0, 20)
+    gate = pose_opt_gate_value(1, 1, opt)
+    idxs = epoch_order(a.loader_seed)[0]
+    out = {}
+    for label, caps in (("startup", init["caps"]),
+                        (f"cap{a.step1_cap}", np.full_like(init["caps"], a.step1_cap))):
+        t0 = time.time()
+        jax_run = JaxRun(a, data, bf16=0)
+        jax_run.set_caps(caps)
+        j_grad = jax_run.gradients(idxs, w_rgl, gate)
+        port = PortRun(a, data, init["params"], init["stats"])
+        port.caps.copy_(torch.as_tensor(caps))
+        t_terms, _ = port.step(idxs, w_rgl, gate)
+        j_terms, _ = jax_run.step(idxs, w_rgl, gate)
+        worst = [(grad_distance(p, j_grad[n]), n) for n, p in port.net.named_parameters()
+                 if not absorbed(n)]
+        out[label] = {"grad": sorted(worst, reverse=True)[:4],
+                      "overflow": (t_terms["raster_overflow"], j_terms["raster_overflow"]),
+                      "total": (t_terms["total"], j_terms["total"]),
+                      "seconds": time.time() - t0}
+        print(f"step 1, {label} caps: " + json.dumps(out[label]), flush=True)
     pickle.dump(out, open(path, "wb"))
     return out
 
@@ -720,7 +805,7 @@ def compare(runs) -> dict:
     return {"table": table, "first": first, "first_wide": first_wide, "checks": checks}
 
 
-def report(a, init, runs, cmp, cross, anchored, out_dir):
+def report(a, init, runs, cmp, cross, anchored, out_dir, step1=None):
     name = size_name(a)
     lines = [f"torch_jax_epoch1: {name}, B={B}, {STEPS} steps, M={M_FULL}, caps from the JAX "
              "f32 startup probe", ""]
@@ -733,6 +818,7 @@ def report(a, init, runs, cmp, cross, anchored, out_dir):
             lines.append(f"epoch-1 retune ({r}): clip fraction at M=4 {c['clip_frac_m4']:.3e}, "
                          f"drift {c['drift']:.3e}, mean need {c['mean_need']:.3f}, eval scale "
                          f"p50 {c['eval_p50']:.4g} p99 {c['eval_p99']:.4g}")
+    lines += ["", "trails:"] + ["  " + trail(r, runs[r]) for r in RUNS + CONTROLS if r in runs]
     if cross is not None:
         lines.append(f"the port's probe on JAX f32's retune state: clip fraction at M=4 "
                      f"{cross['clip_frac_m4']:.3e}, drift {cross['drift']:.3e}, mean need "
@@ -741,6 +827,11 @@ def report(a, init, runs, cmp, cross, anchored, out_dir):
     lines.append("")
     lines.append("wall: " + ", ".join(f"{r} {runs[r]['seconds']:.0f} s" for r in runs)
                  + ("" if anchored is None else f", anchored {anchored['seconds']:.0f} s"))
+    for label, rec in (step1 or {}).items():
+        lines.append(f"step 1, {label} caps: overflow port / JAX {rec['overflow'][0]:.0f} / "
+                     f"{rec['overflow'][1]:.0f}, total {rec['total'][0]:.7f} / "
+                     f"{rec['total'][1]:.7f}; worst gradients " + ", ".join(
+                         f"{d:.2e} ({n})" for d, n in rec["grad"]))
     if anchored is not None:
         lines += ["", "anchored: the port's step from JAX f32's state at each step, against "
                   "JAX's (largest relative distance, and where)"]
@@ -793,6 +884,7 @@ def report(a, init, runs, cmp, cross, anchored, out_dir):
                               for s, c in runs[r]["checks"].items()}} for r in runs}
     blob = {"size": {k: v for k, v in vars(a).items() if k not in ("work", "out", "runs")},
             "startup": st, "runs": records, "cross_probe": cross, "anchored": anchored,
+            "step1": step1,
             "distances": None if cmp is None else
             [{k: {"port": v[0], "band": v[1], "wide_band": v[2]} for k, v in row.items()}
              for row in cmp["table"]],
@@ -813,7 +905,9 @@ def main(argv=None):
     ap.add_argument("--inp", type=int, default=128)
     ap.add_argument("--hsize", type=int, default=128)
     ap.add_argument("--c_geom", type=int, default=64)
-    ap.add_argument("--runs", nargs="*", default=list(ALL_RUNS), choices=ALL_RUNS)
+    ap.add_argument("--runs", nargs="*", default=list(ALL_RUNS), choices=ALL_RUNS + ("step1",),
+                    help="step1 (not run by default): step1_caps's two gradient comparisons")
+    ap.add_argument("--step1_cap", type=int, default=2048)
     ap.add_argument("--threads", type=int, default=4)
     ap.add_argument("--device", default="cpu")
     ap.add_argument("--card", nargs="+", default=["f32_jaxinit", "bf16_jaxinit",
@@ -821,7 +915,16 @@ def main(argv=None):
                     choices=["f32_jaxinit", "bf16_jaxinit", "f32_portinit", "bf16_portinit"])
     ap.add_argument("--init_pkl", default=None)
     ap.add_argument("--port_seed", type=int, default=0)
+    ap.add_argument("--perturb_seed", type=int, default=0,
+                    help="card mode: the *_jaxinit variants start from JAX's weights perturbed "
+                         "as the control jax_f32_pN is, N the seed (0: unperturbed)")
     ap.add_argument("--tag", default="")
+    ap.add_argument("--jax_key", type=int, default=0,
+                    help="JAX's initial network is init_state(PRNGKey(K)); K > 0 tags the "
+                         "work directory and the outputs _jaxkeyK")
+    ap.add_argument("--loader_seed", type=int, default=0,
+                    help="epoch 1's batch order is a loader's seeded L (train_multi's subject "
+                         "L's); L > 0 tags the work directory and the outputs _loaderL")
     a = ap.parse_args(argv)
     torch.set_num_threads(a.threads)
     work = join(a.work, size_name(a))
@@ -831,7 +934,11 @@ def main(argv=None):
     if a.device != "cpu":
         return card_runs(a, data)
     init = init_run(a, work, data)
-    runs = {r: train_run(a, work, data, r, init) for r in a.runs if r != "anchored"}
+    runs = {r: train_run(a, work, data, r, init) for r in a.runs
+            if r not in ("anchored", "step1")}
+    step1 = step1_caps(a, work, data, init) if "step1" in a.runs else None
+    if step1 is None and os.path.exists(join(work, f"step1_cap{a.step1_cap}.pkl")):
+        step1 = pickle.load(open(join(work, f"step1_cap{a.step1_cap}.pkl"), "rb"))
     anchored = anchored_run(a, work, data, init) if "anchored" in a.runs else None
     # what earlier processes left for the other runs
     for r in RUNS + CONTROLS:
@@ -845,7 +952,7 @@ def main(argv=None):
                               or os.path.exists(join(work, "cross.pkl"))):
         cross = cross_probe(a, work, data, init, runs["jax_f32"])
     cmp = compare(runs) if all(r in runs for r in RUNS) else None
-    blob = report(a, init, runs, cmp, cross, anchored, a.out)
+    blob = report(a, init, runs, cmp, cross, anchored, a.out, step1)
     print(json.dumps({"size": size_name(a), "startup_clip_m4": init["startup"]["clip_frac_m4"],
                       "retune_clip_m4": {r: runs[r]["checks"][STEPS]["clip_frac_m4"]
                                          for r in runs},
@@ -853,7 +960,8 @@ def main(argv=None):
                       "first_parting_wide": blob["first_parting_wide"],
                       "anchored_max": None if anchored is None else {
                           k: max(rec[k][0] for rec in anchored["steps"])
-                          for k in ("grad", "update", "stat", "term")}}))
+                          for k in ("grad", "update", "stat", "term")},
+                      "peak_rss_gib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20}))
 
 
 if __name__ == "__main__":

@@ -32,6 +32,15 @@ not gated. The canonical campaign:
     python scripts/torch_quality_gate.py --work output/torch_qg512 --query 512 --inp 128 \
         [--stage2] [--pose_opt --pose_lr 1e-2]
 
+With `--subjects N` (N > 1) stage 1 trains N copies of the subject side by
+side through `python -m gaussianavatar_torch.train_multi` (subject s starts
+from JAX's `init_state(PRNGKey(s))` and is shuffled by a loader seeded s;
+every subject keeps its own need table and they share the worst one's
+footprint), and each subject is held to gates 1 and 2 on its own saves
+under <work>/multi/<name>/; its curve and parameter mean are cached in
+curve_<name>.json and avg_eval_<name>.json, and the summary adds, per
+subject, its `init`, need-table and footprint events. Stage 1 only.
+
 It writes <work>/curve.json (PSNR / SSIM per evaluated epoch),
 <work>/quality_summary.json (gates, curve, SWA, stage 2) and
 <work>/wall.json (training wall clock, steps and it/s over the training
@@ -258,16 +267,31 @@ def main(argv=None):
                     help="the leg's embedding learning rate (the JAX canonical gate: 1e-2)")
     ap.add_argument("--pose_epochs", type=int, default=40)
     ap.add_argument("--pose_noise", type=float, default=0.3)
+    ap.add_argument("--subjects", type=int, default=1,
+                    help="N > 1: N copies of the subject through train_multi, each gated")
     args = ap.parse_args(argv)
+    if args.subjects > 1 and (args.stage2 or args.pose_opt):
+        ap.error("--subjects N > 1 holds stage 1's gates only")
     canonical = args.query >= 512
     if args.gate_psnr is None:
         args.gate_psnr = 41.0 if canonical else 30.0
     if args.gate_avg_psnr is None:
         args.gate_avg_psnr = 41.5 if canonical else 30.0
 
+    from gaussianavatar_torch.train_multi import subject_names
+
     work = os.path.abspath(args.work)
     data = join(work, "data")
-    out1 = join(work, "stage1")
+    if args.subjects > 1:
+        root = join(work, "multi")
+        sources = [data] * args.subjects
+        outs = [join(root, n) for n in subject_names(sources)]
+        cli, stage1_argv = "gaussianavatar_torch.train_multi", ["--sources", *sources]
+    else:
+        root = join(work, "stage1")
+        outs = [root]
+        cli, stage1_argv = "gaussianavatar_torch.train", ["-s", data]
+    out1 = outs[0]
     summary = {"gates": {}, "curve": []}
 
     os.makedirs(work, exist_ok=True)
@@ -283,7 +307,7 @@ def main(argv=None):
 
     # the port has no LPIPS yet: it trains as with --no_lpips and says so
     common = [
-        "-s", data, "--dataset_type", "synthetic",
+        "--dataset_type", "synthetic",
         "--query_posmap_size", str(args.query),
         "--inp_posmap_size", str(args.inp),
         "--batch_size", "2", "--device", args.device,
@@ -306,9 +330,10 @@ def main(argv=None):
                        if d.startswith("iteration_"))
         return [e for e in found if e <= last and (e % save_every == 0 or e == last)]
 
-    def train_to(out, last, log_name, argv):
-        """Train (or resume) `out` until its save of epoch `last` exists;
-        each run's wall clock and steps go to <work>/<log_name>."""
+    def train_to(out, last, log_name, argv, cli="gaussianavatar_torch.train", root=None):
+        """Train (or resume) `out` until its save of epoch `last` exists
+        (`-m root`, `out` by default: train_multi's root holds a directory
+        a subject); each run's wall clock and steps go to <work>/<log_name>."""
         log = join(work, log_name)
         runs = json.load(open(log)) if os.path.exists(log) else []
         if last not in saved_epochs(out, last):
@@ -319,7 +344,7 @@ def main(argv=None):
             extra = ["--checkpoint_epochs", str(resume)] if resume is not None else []
             start_it = iteration_at(resume) if resume is not None else 0
             t0 = time.time()
-            sh(["-m", "gaussianavatar_torch.train", "-m", out, *common, *argv,
+            sh(["-m", cli, "-m", root or out, *common, *argv,
                 "--epochs", str(last), "--save_epoch", str(save_every),
                 "--save_epochs", str(save_every - 1), *extra])
             runs.append({"resumed_from_epoch": resume, "from_iteration": start_it,
@@ -329,63 +354,91 @@ def main(argv=None):
                 json.dump(runs, f, indent=1)
         return runs
 
-    runs = train_to(out1, args.epochs, "train_runs.json", ["--train_stage", "1"])
-    epochs = saved_epochs(out1, args.epochs)
-    curve_epochs = sorted({e for e in epochs if (e // save_every) % 2 == 0} | {epochs[-1]})
-    curve_path = join(work, "curve.json")
-    curve_cache = {}
-    if os.path.exists(curve_path):
-        curve_cache = {c["epoch"]: c for c in json.load(open(curve_path))}
+    runs = train_to(out1, args.epochs, "train_runs.json", ["--train_stage", "1", *stage1_argv],
+                    cli, root)
 
-    def evaluate(e):
-        if e not in curve_cache:
-            sh(["-m", "gaussianavatar_torch.eval", "-m", out1, "--epoch", str(e),
-                "--device", args.device])
-            p, s = read_psnr(out1)
-            curve_cache[e] = {"epoch": e, "psnr": p, "ssim": s}
-            with open(curve_path, "w") as f:
-                json.dump([curve_cache[k] for k in sorted(curve_cache)], f)
-        return curve_cache[e]
+    def stage1_gates(out, tag):
+        """Gates 1 and 2 and the parameter mean on `out`'s saves (evaluations
+        cached in curve{tag}.json and avg_eval{tag}.json) -> (its summary,
+        its saved epochs, its final PSNR: the larger of the endpoint and
+        the parameter mean)."""
+        sub = {"gates": {}, "curve": []}
+        epochs = saved_epochs(out, args.epochs)
+        curve_epochs = sorted({e for e in epochs if (e // save_every) % 2 == 0} | {epochs[-1]})
+        curve_path = join(work, f"curve{tag}.json")
+        curve_cache = {}
+        if os.path.exists(curve_path):
+            curve_cache = {c["epoch"]: c for c in json.load(open(curve_path))}
 
-    for e in curve_epochs:
-        c = evaluate(e)
-        summary["curve"].append(c)
-        print(f"[curve] epoch {e}: PSNR {c['psnr']:.2f} SSIM {c['ssim']:.4f}", flush=True)
+        def evaluate(e):
+            if e not in curve_cache:
+                sh(["-m", "gaussianavatar_torch.eval", "-m", out, "--epoch", str(e),
+                    "--device", args.device])
+                p, s = read_psnr(out)
+                curve_cache[e] = {"epoch": e, "psnr": p, "ssim": s}
+                with open(curve_path, "w") as f:
+                    json.dump([curve_cache[k] for k in sorted(curve_cache)], f)
+            return curve_cache[e]
 
-    final_psnr = summary["curve"][-1]["psnr"]
-    summary["gates"]["stage1_psnr"] = {
-        "value": final_psnr, "gate": args.gate_psnr, "pass": final_psnr >= args.gate_psnr
-    }
+        for e in curve_epochs:
+            c = evaluate(e)
+            sub["curve"].append(c)
+            print(f"[curve{tag}] epoch {e}: PSNR {c['psnr']:.2f} SSIM {c['ssim']:.4f}",
+                  flush=True)
 
-    K_AVG = 3
-    tail = epochs[-min(K_AVG, len(epochs)):]
-    tail_psnrs = [evaluate(e)["psnr"] for e in tail]
-    tail_mean = sum(tail_psnrs) / len(tail_psnrs)
-    print(f"[tail] mean PSNR over {tail}: {tail_mean:.2f} "
-          f"(spread {max(tail_psnrs) - min(tail_psnrs):.2f} dB)", flush=True)
-    summary["gates"]["stage1_tail_mean_psnr"] = {
-        "value": tail_mean, "epochs": tail, "psnrs": tail_psnrs,
-        "gate": args.gate_avg_psnr, "pass": tail_mean >= args.gate_avg_psnr,
-    }
+        final_psnr = sub["curve"][-1]["psnr"]
+        sub["gates"]["stage1_psnr"] = {
+            "value": final_psnr, "gate": args.gate_psnr, "pass": final_psnr >= args.gate_psnr
+        }
 
-    # the parameter mean of the tail saves: recorded, not gated
-    avg_path = join(work, "avg_eval.json")
-    if len(epochs) >= 2:
-        if os.path.exists(avg_path):
-            avg = json.load(open(avg_path))
-        else:
-            avg_epoch = args.epochs + 1
-            average_checkpoints(out1, tail, avg_epoch)
-            sh(["-m", "gaussianavatar_torch.eval", "-m", out1, "--epoch", str(avg_epoch),
-                "--device", args.device])
-            p, s = read_psnr(out1)
-            avg = {"epochs": tail, "psnr": p, "ssim": s}
-            with open(avg_path, "w") as f:
-                json.dump(avg, f)
-        print(f"[swa] parameter mean of {avg['epochs']}: PSNR {avg['psnr']:.2f} "
-              f"SSIM {avg['ssim']:.4f}", flush=True)
-        summary["swa_experiment"] = avg
-        final_psnr = max(final_psnr, avg["psnr"])
+        K_AVG = 3
+        tail = epochs[-min(K_AVG, len(epochs)):]
+        tail_psnrs = [evaluate(e)["psnr"] for e in tail]
+        tail_mean = sum(tail_psnrs) / len(tail_psnrs)
+        print(f"[tail{tag}] mean PSNR over {tail}: {tail_mean:.2f} "
+              f"(spread {max(tail_psnrs) - min(tail_psnrs):.2f} dB)", flush=True)
+        sub["gates"]["stage1_tail_mean_psnr"] = {
+            "value": tail_mean, "epochs": tail, "psnrs": tail_psnrs,
+            "gate": args.gate_avg_psnr, "pass": tail_mean >= args.gate_avg_psnr,
+        }
+
+        # the parameter mean of the tail saves: recorded, not gated
+        avg_path = join(work, f"avg_eval{tag}.json")
+        if len(epochs) >= 2:
+            if os.path.exists(avg_path):
+                avg = json.load(open(avg_path))
+            else:
+                avg_epoch = args.epochs + 1
+                average_checkpoints(out, tail, avg_epoch)
+                sh(["-m", "gaussianavatar_torch.eval", "-m", out, "--epoch", str(avg_epoch),
+                    "--device", args.device])
+                p, s = read_psnr(out)
+                avg = {"epochs": tail, "psnr": p, "ssim": s}
+                with open(avg_path, "w") as f:
+                    json.dump(avg, f)
+            print(f"[swa{tag}] parameter mean of {avg['epochs']}: PSNR {avg['psnr']:.2f} "
+                  f"SSIM {avg['ssim']:.4f}", flush=True)
+            sub["swa_experiment"] = avg
+            final_psnr = max(final_psnr, avg["psnr"])
+        return sub, epochs, final_psnr
+
+    if args.subjects > 1:
+        summary["subjects"] = []
+        for out in outs:
+            name = os.path.basename(out)
+            sub, _, _ = stage1_gates(out, "_" + name)
+            events = [(r["event"], r["value"]) for r in map(json.loads, open(
+                join(out, "metrics.jsonl"))) if "event" in r]
+            sub.update(name=name, init=dict(events).get("init"),
+                       need_bank=dict(events).get("ragged_need_bank"),
+                       retunes=[v for e, v in events if e == "ragged_retune"],
+                       footprint_adapt=[v for e, v in events if e == "footprint_adapt"])
+            summary["subjects"].append(sub)
+            summary["gates"].update({f"{name}/{k}": g for k, g in sub["gates"].items()})
+        del summary["curve"]
+    else:
+        sub, epochs, final_psnr = stage1_gates(out1, "")
+        summary.update(sub)
 
     stage2_runs = []
     if args.stage2:
@@ -402,7 +455,8 @@ def main(argv=None):
                 print("[stage2] resuming: the decoder, geo_feature and the embeddings come "
                       "from stage 1 again (ROADMAP F10)", flush=True)
         stage2_runs = train_to(out2, ep2, "stage2_runs.json",
-                               ["--train_stage", "2", "--stage1_out_path", stage1_end])
+                               ["-s", data, "--train_stage", "2",
+                                "--stage1_out_path", stage1_end])
         s2_path = join(work, "stage2_eval.json")
         if os.path.exists(s2_path):
             s2 = json.load(open(s2_path))
@@ -447,6 +501,10 @@ def main(argv=None):
                 "wall_it_per_sec": steps / wall_s if wall_s else None, "runs": rs}
 
     wall = {**wall_of(runs), "card": card_of(args.device)}
+    if args.subjects > 1:
+        wall.update(subjects=args.subjects, steady_subject_steps_per_sec=[
+            None if r["steady_it_per_sec"] is None else r["steady_it_per_sec"] * args.subjects
+            for r in runs])
     if stage2_runs:
         wall["stage2"] = wall_of(stage2_runs)
     if pose_wall:

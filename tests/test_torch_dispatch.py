@@ -66,8 +66,8 @@ def _net_kw(stage):
     return kw
 
 
-def _inputs(stage, seed):
-    """The GT bank, stage 2's posmaps and S batches, from numpy."""
+def _inputs(stage, seed, groups=1):
+    """The GT bank, stage 2's posmaps and S batches a group, from numpy."""
     rng = np.random.default_rng(seed)
     bank = rng.integers(0, 256, size=(N_FRAMES, 3, H, W)).astype(np.uint8)
     inp = rng.normal(scale=0.4, size=(N_FRAMES, 3, 32, 32)).astype(np.float32)
@@ -79,7 +79,8 @@ def _inputs(stage, seed):
     batches = [{"pose_idx": rng.choice(N_FRAMES, B, replace=False).astype(np.int32),
                 "world_view_transform": rep(cam.world_view_transform),
                 "full_proj_transform": rep(cam.full_proj_transform),
-                "tan_fovx": rep(cam.tan_fovx), "tan_fovy": rep(cam.tan_fovy)} for _ in range(S)]
+                "tan_fovx": rep(cam.tan_fovx), "tan_fovy": rep(cam.tan_fovy)}
+               for _ in range(S * groups)]
     return bank, inp, batches
 
 
@@ -106,7 +107,18 @@ def _port(stage, decoder_impl, sd, start_it, bank, inp, make=ts.make_train_steps
 @pytest.fixture(scope="module", params=list(CASES))
 def scan_runs(request):
     """JAX make_train_step_scan and the port's make_train_steps, S=4, from
-    one JAX init_state on the same stacked batches."""
+    one JAX state on the same stacked batches. The state is JAX's
+    init_state after one group of its own scan (on S more batches, drawn
+    after the held group's), so Adam's moments are warm as they are at
+    `start_it` in a run: from a fresh optimizer the first update of each
+    element is lr g / (|g| + eps), and for an element whose gradient
+    happens to lie within a few eps of 0 (3.2e-8 against eps 1e-8, 2e-6
+    of its leaf's largest, in stage 1's draw) the two packages' float
+    noise in g, 25% of it there, moved the parameter by 1.1e-4 after one
+    step: 9.3e-5 after the group with one build of MKL's kernels and
+    1.07e-4 with its AVX2 kernels (`MKL_ENABLE_INSTRUCTIONS=AVX2`), so the
+    bound below held or not by the host's CPU. The port's optimizer takes
+    JAX's counts and moments (bridge.optimizer_state_from_jax)."""
     stage, decoder_impl, start_it = CASES[request.param]
     jm, uv = j_synthetic_body()
     J = jm.parents.shape[0]
@@ -118,10 +130,9 @@ def scan_runs(request):
                       **_net_kw(stage))
     st0 = jax.jit(lambda key: init_state(jnet, ja, _TX0(), rng=key, batch_size=B))(
         jax.random.PRNGKey(21 + stage))
-    st0 = st0.replace(iteration=jnp.int32(start_it))
-    sd0 = bridge.state_dict_from_jax(to_np(st0.params), to_np(st0.batch_stats))
-    params0, bs0 = to_np(st0.params), to_np(st0.batch_stats)
-    bank, inp, batches = _inputs(stage, 30 + stage)
+    st0 = st0.replace(iteration=jnp.int32(start_it - S))
+    bank, inp, batches = _inputs(stage, 30 + stage, groups=2)
+    batches, warm = batches[:S], batches[S:]
     gates = (float(np.float32(JOpt().lambda_rgl)), float(stage == 1), 0.0)
 
     tx = j_build_optimizer(st0.params, JOpt(), steps_per_epoch=2, train_stage=stage)
@@ -129,13 +140,18 @@ def scan_runs(request):
         if stage == 2 else {}
     scan = make_train_step_scan(jnet, jm, ja, tx, JOpt(), H, W, (1.0, 1.0, 1.0), JCFG,
                                 gt_bank=jnp.asarray(bank), **extra)
-    st = st0.replace(opt_state=tx.init(st0.params))
-    stacked = {k: jnp.stack([jnp.asarray(b[k]) for b in batches]) for k in batches[0]}
-    st, j_terms, j_images = scan(st, stacked, *(np.float32(g) for g in gates))
+    stack = lambda bs: {k: jnp.stack([jnp.asarray(b[k]) for b in bs]) for k in bs[0]}
+    j_gates = tuple(np.float32(g) for g in gates)
+    st, _, _ = scan(st0.replace(opt_state=tx.init(st0.params)), stack(warm), *j_gates)
+    assert int(st.iteration) == start_it
+    params0, bs0, opt0 = to_np(st.params), to_np(st.batch_stats), to_np(st.opt_state)
+    sd0 = bridge.state_dict_from_jax(params0, bs0)
+    st, j_terms, j_images = scan(st, stack(batches), *j_gates)
     j_sd = bridge.state_dict_from_jax(to_np(st.params), to_np(st.batch_stats))
 
     tnet_sd = bridge.state_dict_from_jax(params0, bs0)
     state, steps = _port(stage, decoder_impl, tnet_sd, start_it, bank, inp)
+    state.optimizer.load_state_dict(bridge.optimizer_state_from_jax(opt0))
     terms, images = steps(state, batches, *gates)
     return {"stage": stage, "decoder": decoder_impl, "start_it": start_it, "sd0": sd0,
             "j": (j_sd, {k: np.asarray(v) for k, v in j_terms.items()}, int(st.iteration),

@@ -12,8 +12,9 @@
    two sides pose the gaussians with float32 LBS summed in different
    orders, so a tile's needed depth may move where an ulp moves a rect or a
    depth key (tests/test_torch_slice.py); the bound is stated there;
-3. the switch: the flags that turn the table on in the JAX loop, and in
-   the port only when given;
+3. the switch: the flags that turn the table on in the JAX loop, and the
+   train CLIs' defaults (both `train` and `train_multi` resolve them as the
+   JAX CLIs do, and train_multi's subjects start from JAX's keys);
 4. the CLIs on the CPU with the table on (`train`, `train_multi`): their
    events, their probe counts, and the footprint decision the JAX rule
    takes on the logged clip fraction.
@@ -212,19 +213,103 @@ def test_train_cli_defaults(argv, table, init, notes):
 
 
 @pytest.mark.parametrize("argv, table, init", [
-    ([], False, "torch"), (["--init", "flax", "--ragged", "1", "--auto_cascade", "1"], True,
-                           "flax"),
-], ids=["defaults", "asked"])
+    ([], True, "flax"), (["--init", "flax", "--ragged", "1", "--auto_cascade", "1"], True,
+                         "flax"),
+    (["--init", "torch", "--ragged", "0", "--auto_cascade", "0"], False, "torch"),
+], ids=["defaults", "asked", "opted_out"])
 def test_train_multi_cli_defaults(argv, table, init):
-    """train_multi keeps torch's initialisation and the whole-range blend at
-    512 queries unless asked (engine/multi_loop.MULTI_SUBJECT_INIT: its
-    subjects s >= 1 draw PRNGKey(s), ROADMAP F20), for every subject."""
+    """train_multi takes the JAX CLI's defaults, as train does: flax's
+    initial networks (subject s draws PRNGKey(s)) and, at 512 queries, the
+    need table for every subject; `--init torch --ragged 0 --auto_cascade 0`
+    gives the whole-range blend from torch's initialisation."""
     from gaussianavatar_torch import train_multi
 
     args, cfgs = train_multi.parse_args(["--sources", "/a", "/b", "-m", "/out"] + argv)
     assert args.init == init and len(cfgs) == 2
     assert [need_table.enabled(c) for c in cfgs] == [table, table]
     assert [c.model.model_path for c in cfgs] == ["/out/a", "/out/b"]
+
+
+@pytest.mark.parametrize("argv", [[], ["--ragged", "0"], ["--query_posmap_size", "256"]],
+                         ids=["defaults", "ragged0", "q256"])
+def test_train_multi_cfgs_match_jax_cli(argv):
+    """Every subject's cfg from `train_multi.parse_args` equals the JAX
+    root train_multi.py's (its parser, `extract_config` and
+    `resolve_train_raster_defaults` for each subject, then the subject's
+    paths; train_multi.py:70-79), and one note is printed for each default
+    the JAX CLI applies."""
+    from argparse import ArgumentParser
+    import dataclasses
+
+    from gaussianavatar_tpu import config as jconfig
+
+    from gaussianavatar_torch import train_multi
+
+    cli = ["--sources", "/d/a", "/e/a", "/f/b", "-m", "/out"] + argv
+    args, cfgs = train_multi.parse_args(cli)
+    jp = ArgumentParser()
+    jconfig.build_parser(jp)
+    jp.add_argument("--sources", nargs="+", required=True)
+    jargs = jp.parse_args(cli)
+    jcfgs, j_notes = [], None
+    for src, name in zip(jargs.sources, train_multi.subject_names(jargs.sources)):
+        jcfg = jconfig.extract_config(jargs)
+        notes = jconfig.resolve_train_raster_defaults(jcfg, jargs)
+        j_notes = notes if j_notes is None else j_notes
+        jcfg.model.source_path = src
+        jcfg.model.model_path = join("/out", name)
+        jcfgs.append(jcfg)
+    assert [dataclasses.asdict(c) for c in cfgs] == [dataclasses.asdict(c) for c in jcfgs]
+    assert [c.model.model_path for c in cfgs] == ["/out/a", "/out/a_1", "/out/b"]
+    # one note for each default applied, as the JAX CLI prints (the port's
+    # wording names its own kernels)
+    assert len(args.raster_notes) == len([n for n in j_notes if n.startswith("raster defaults")])
+    assert need_table.enabled(cfgs[0]) == (argv == [])
+
+
+def test_train_multi_subjects_start_from_jax_keys(tmp_path):
+    """On the defaults, `build_subjects` gives subject s the JAX multi-subject
+    loop's network, `init_state(..., rng=PRNGKey(s))`
+    (gaussianavatar_tpu/engine/multi_loop.py:159), leaf for leaf within
+    4.4e-6 (the inverse error function's ulps, tests/test_torch_init.py);
+    the two subjects' networks differ."""
+    from argparse import ArgumentParser
+
+    from gaussianavatar_tpu import config as jconfig
+    from gaussianavatar_tpu.engine.setup import setup_avatar as j_setup_avatar
+    from gaussianavatar_tpu.engine.train_step import init_state
+
+    from gaussianavatar_torch import bridge, train_multi
+    from gaussianavatar_torch.data.synthetic_writer import write_synthetic_dataset
+    from gaussianavatar_torch.engine.multi_loop import build_subjects
+
+    data = str(tmp_path / "data")
+    write_synthetic_dataset(data, n_train=4, n_test=1, image_size=48, device="cpu")
+    small = ["--dataset_type", "synthetic", "--query_posmap_size", "32",
+             "--inp_posmap_size", "16", "--c_geom", "8", "--hsize", "16"]
+    args, cfgs = train_multi.parse_args(["--sources", data, data, "-m", str(tmp_path / "o"),
+                                         "--device", "cpu", *small])
+    subjects, _, _ = build_subjects(cfgs, "cpu")
+    jp = ArgumentParser()
+    jconfig.build_parser(jp)
+    jcfg = jconfig.extract_config(jp.parse_args(["-s", data, *small]))
+    jb = j_setup_avatar(jcfg, train=True)
+
+    class _TX0:
+        def init(self, p):
+            return None
+
+    port = [s.bundle.net.state_dict() for s in subjects]
+    for s in range(2):
+        st = init_state(jb.net, jb.assets, _TX0(), rng=jax.random.PRNGKey(s),
+                        batch_size=jcfg.model.batch_size)
+        jax_sd = bridge.state_dict_from_jax(jax.tree.map(np.asarray, st.params),
+                                            jax.tree.map(np.asarray, st.batch_stats))
+        assert port[s].keys() == jax_sd.keys()
+        for k, j in jax_sd.items():
+            np.testing.assert_allclose(port[s][k].numpy(), j.numpy(), rtol=0, atol=4.4e-6,
+                                       err_msg=f"subject {s}: {k}")
+    assert not torch.equal(port[0]["geo_feature"], port[1]["geo_feature"])
 
 
 def test_footprint_rule():
@@ -270,8 +355,10 @@ def test_train_cli_with_need_table(tmp_path, capsys):
 
 def test_train_multi_with_need_tables(tmp_path):
     """Two subjects, --ragged 1 --auto_cascade 1: each subject's log holds
-    its own table's build and the run's probes (both subjects'), and the
-    subjects share one footprint, decided by the worst clip fraction."""
+    its initialisation (JAX's PRNGKey(s)), its own table's build, its own
+    reading at the epoch-1 retune and the run's probes (both subjects'),
+    and the subjects share one footprint, decided by the worst clip
+    fraction."""
     from gaussianavatar_torch import train_multi
     from gaussianavatar_torch.data.synthetic_writer import write_synthetic_dataset
 
@@ -287,9 +374,13 @@ def test_train_multi_with_need_tables(tmp_path):
                       "--query_posmap_size", "32", "--inp_posmap_size", "16", "--c_geom", "8",
                       "--hsize", "16", "--bf16_decoder", "0", "--tile_size", "16"])
     fracs, adapts = [], []
-    for name, n in (("a", 4), ("b", 6)):
+    for s, (name, n) in enumerate((("a", 4), ("b", 6))):
         records = [json.loads(line) for line in open(join(out, name, "metrics.jsonl"))]
         events = [(r["event"], r["value"]) for r in records if "event" in r]
+        assert dict(events)["init"] == f"flax PRNGKey({s})"
+        retunes = [v for e, v in events if e == "ragged_retune"]
+        assert len(retunes) == 1 and sorted(retunes[0]) == ["clip_frac_m4", "drift"]
+        assert 0.0 <= retunes[0]["clip_frac_m4"] <= 1.0 and 0.0 <= retunes[0]["drift"] <= 1.0
         bank = dict(events)["ragged_need_bank"]
         assert bank.startswith(f"frames {n} ")
         fracs.append(float(bank.split("fp_clip ")[1]))

@@ -85,3 +85,42 @@ def test_quality_gate_stage2_leg(tmp_path):
     assert gate.main(argv) == rc
     assert open(join(work, "stage2", "metrics.jsonl")).read() == metrics
     assert len(json.load(open(join(work, "wall.json")))["stage2"]["runs"]) == 1
+
+
+def test_quality_gate_subjects(tmp_path):
+    """--subjects 2 on the CPU: two copies of the subject through
+    train_multi on its defaults (subject s from JAX's PRNGKey(s)), each
+    held to the stage-1 gates on its own saves, its curve cached apart; a
+    second run trains and evaluates nothing again; --stage2 is refused."""
+    sys.path.insert(0, join(REPO, "scripts"))
+    gate = importlib.import_module("torch_quality_gate")
+    work = str(tmp_path / "qgm")
+    argv = ["--work", work, "--epochs", "2", "--image_size", "32", "--n_train", "2",
+            "--n_test", "1", "--query", "32", "--inp", "16", "--gate_psnr", "0",
+            "--gate_avg_psnr", "0", "--device", "cpu", "--subjects", "2"]
+    for flag in SMALL[:-1]:   # train_multi, as the JAX CLI, has no --no_lpips
+        argv += ["--train_flag", flag]
+    assert gate.main(argv) == 0
+    summary = json.load(open(join(work, "quality_summary.json")))
+    names = ["data", "data_1"]
+    assert summary["pass"] and [s["name"] for s in summary["subjects"]] == names
+    assert set(summary["gates"]) == {f"{n}/{k}" for n in names
+                                     for k in ("stage1_psnr", "stage1_tail_mean_psnr")}
+    for s, sub in enumerate(summary["subjects"]):
+        assert sub["init"] == f"flax PRNGKey({s})"
+        assert sub["gates"]["stage1_tail_mean_psnr"]["epochs"] == [1, 2]
+        assert sub["swa_experiment"]["epochs"] == [1, 2] and len(sub["curve"]) == 1
+        curve = json.load(open(join(work, f"curve_{sub['name']}.json")))
+        assert [c["epoch"] for c in curve] == [1, 2] and curve[1] == sub["curve"][0]
+    wall = json.load(open(join(work, "wall.json")))
+    assert wall["steps"] == 2 and wall["subjects"] == 2 and len(wall["runs"]) == 1
+    metrics = open(join(work, "multi", "data_1", "metrics.jsonl")).read()
+    assert gate.main(argv) == 0
+    assert open(join(work, "multi", "data_1", "metrics.jsonl")).read() == metrics
+    assert len(json.load(open(join(work, "wall.json")))["runs"]) == 1
+    try:
+        gate.main(argv + ["--stage2"])
+    except SystemExit as e:
+        assert e.code == 2
+    else:
+        raise AssertionError("--subjects 2 --stage2 ran")
