@@ -20,7 +20,6 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from gaussianavatar_torch.config import Config
 from gaussianavatar_torch.engine import checkpoint as ckpt
@@ -34,6 +33,7 @@ from gaussianavatar_torch.models.avatar import (
 )
 from gaussianavatar_torch.models.body import BodyModel
 from gaussianavatar_torch.ops.rasterize import RasterizeConfig, raster_config, rasterize_views
+from gaussianavatar_torch.utils.spans import span
 
 # the iteration inference renders at: past the scale warm-up
 INFERENCE_ITERATION = 10**6
@@ -84,7 +84,8 @@ def decode_batch(net: AvatarNet, assets: AvatarAssets, batch: dict):
     2); without, the decoder runs once and its output is expanded."""
     B = batch["pose_idx"].reshape(-1).shape[0]
     inp = batch.get("inp_pos_map")
-    res, scales, shs, _ = net.decode(assets, 1 if inp is None else B, inp)
+    with span("render::decode", assets.query_points.device):
+        res, scales, shs, _ = net.decode(assets, 1 if inp is None else B, inp)
     if inp is None:
         res, scales, shs = (x.expand(B, -1, -1) for x in (res, scales, shs))
     return res, scales, shs
@@ -102,10 +103,10 @@ def posed_gaussians(net, body_model, assets, res, scales, shs, batch, iteration)
         pose, transl = batch["pose_data"], batch["transl_data"]
     else:
         pose, transl = net.lookup(idx)
-    with record_function("render::pose_gaussians"):
+    with span("render::pose_gaussians", res.device):
         world = pose_gaussians(body_model, assets, pose, transl, res,
                                rest_pose=batch.get("rest_pose"))
-    with record_function("render::attributes"):
+    with span("render::attributes", res.device):
         scales3, rotations, opacity = gaussian_attributes(assets, scale_warmup(scales, iteration))
     return world, shs, scales3, rotations, opacity
 
@@ -127,7 +128,7 @@ def _render_posed(net, body_model, assets, res, scales, shs, batch, H, W, bg,
 
 def precompute_canonical(net: AvatarNet, assets: AvatarAssets):
     """Stage-1 decoder outputs are pose-independent: decode ONCE."""
-    with torch.no_grad():
+    with torch.no_grad(), span("render::decode", assets.query_points.device):
         res, scales, shs, _ = net.decode(assets, 1)
     return res[0], scales[0], shs[0]
 
@@ -177,19 +178,23 @@ def make_renderer(inf: InferenceBundle, height: int, width: int,
                   with_overflow: bool = False):
     """render(batch, iteration=...) for a trained avatar: stage 1 through
     the canonical cache, stage 2 decoding every frame from the batch's
-    `inp_pos_map`."""
+    `inp_pos_map`. Each call is the span `render::call`."""
     cfg, bundle = inf.cfg, inf.bundle
     rcfg = raster_config(cfg)
     bg = (1.0, 1.0, 1.0) if cfg.model.white_background else (0.0, 0.0, 0.0)
+    device = bundle.assets.query_points.device
     if cfg.model.train_stage == 2:
-        return make_render_fn(bundle.net, bundle.body_model, bundle.assets, height, width, bg,
+        draw = make_render_fn(bundle.net, bundle.body_model, bundle.assets, height, width, bg,
                               rcfg, with_overflow=with_overflow)
-    cache = precompute_canonical(bundle.net, bundle.assets)
-    cached = make_cached_render_fn(bundle.net, bundle.body_model, bundle.assets,
-                                   height, width, bg, rcfg, with_overflow=with_overflow)
+    else:
+        cache = precompute_canonical(bundle.net, bundle.assets)
+        cached = make_cached_render_fn(bundle.net, bundle.body_model, bundle.assets,
+                                       height, width, bg, rcfg, with_overflow=with_overflow)
+        draw = lambda batch, iteration: cached(cache, batch, iteration)
 
     def render(batch, iteration: int = INFERENCE_ITERATION):
-        return cached(cache, batch, iteration)
+        with span("render::call", device):
+            return draw(batch, iteration)
 
     return render
 

@@ -38,8 +38,12 @@ ranks, as in the JAX package's psum.
 Where the JAX step returns a new state, this one updates `TrainState` in
 place: the network's parameters and BatchNorm statistics, the optimizer's
 moments and counts, and the iteration counter. The stages open `train::*`
-and `render::*` profiler ranges (scripts/torch_train_profile.py reads them);
-each costs one `record_function` per step.
+and `render::*` spans (utils/spans.py): a profiler range on the host and,
+on the card, a begin and an end marker kernel on the device, which a CUDA
+graph captures, so a replayed step carries its spans too
+(scripts/torch_train_profile.py and the benchmark read them).
+`train::decode_bwd` is the decoder's backward: it opens where autograd
+reaches the decoder's outputs and closes when the backward returns.
 
 `make_train_steps` is the counterpart of the JAX `make_train_step_scan`: S
 steps on S stacked batches in one dispatch, the trajectory of S sequential
@@ -70,7 +74,6 @@ from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from gaussianavatar_torch.engine.inference import _to_device
 from gaussianavatar_torch.engine.optim import GroupOptimizer
@@ -83,6 +86,7 @@ from gaussianavatar_torch.ops.rasterize import RasterizeConfig, rasterize_views
 from gaussianavatar_torch.ops.ssim import l1_loss, ssim
 from gaussianavatar_torch.parallel import mesh
 from gaussianavatar_torch.utils.cuda_build import GraphLaunches
+from gaussianavatar_torch.utils.spans import begin_in_backward, mark, span
 
 
 @dataclass
@@ -126,7 +130,7 @@ def _make_body(net, body_model, assets, opt_cfg, H, W, bg_color, raster_cfg, gt_
     embeddings = (net.pose_embedding, net.transl_embedding)
 
     def body(state: TrainState, b: dict, sc: StepScalars, lpips_on: bool):
-        with record_function("train::step"):
+        with span("train::step", device):
             return _body(state, b, sc, lpips_on)
 
     def _body(state, b, sc, lpips_on):
@@ -137,19 +141,23 @@ def _make_body(net, body_model, assets, opt_cfg, H, W, bg_color, raster_cfg, gt_
         net.train()
         state.optimizer.zero_grad()
 
-        with record_function("train::decode"):
+        with span("train::decode", device):
             pose, transl = net.lookup(idx)
             if train_stage == 1:
                 # the stage-1 decoder sees no per-frame input: decode once, expand
                 res, scales, shs, _ = net.decode(assets, 1)
-                res, scales, shs = (x.expand(B, -1, -1) for x in (res, scales, shs))
             else:
                 inp = inp_bank[idx * 0 if inp_bank.shape[0] == 1 else idx]
                 res, scales, shs, pose_featmap = net.decode(assets, B, inp)
-        with record_function("render::pose_gaussians"):
+            # the decoder's backward, from where autograd reaches its outputs
+            # to the end of the backward, is the span train::decode_bwd
+            res, scales, shs = begin_in_backward("train::decode_bwd", device, res, scales, shs)
+            if train_stage == 1:
+                res, scales, shs = (x.expand(B, -1, -1) for x in (res, scales, shs))
+        with span("render::pose_gaussians", device):
             world = pose_gaussians(body_model, assets, pose, transl, res,
                                    rest_pose=b.get("rest_pose"))
-        with record_function("render::attributes"):
+        with span("render::attributes", device):
             # the scale warm-up is stage 1's only
             scales3, rotations, opacity = gaussian_attributes(
                 assets, scale_warmup(scales, sc.iteration) if train_stage == 1 else scales)
@@ -160,7 +168,7 @@ def _make_body(net, body_model, assets, opt_cfg, H, W, bg_color, raster_cfg, gt_
             config=raster_cfg if grp is None else raster_cfg._replace(key_views=B * grp.dp),
             caps=None if need_caps is None else need_caps[idx].reshape(-1))
 
-        with record_function("train::loss"):
+        with span("train::loss", device):
             l1 = (1.0 - opt_cfg.lambda_dssim) * l1_loss(images, gt)
             ssim_loss = opt_cfg.lambda_dssim * (1.0 - ssim(images, gt))
             offset_loss = sc.w_rgl * torch.mean(res ** 2)
@@ -175,27 +183,28 @@ def _make_body(net, body_model, assets, opt_cfg, H, W, bg_color, raster_cfg, gt_
                 loss = offset_loss + l1 + ssim_loss + pose_loss
                 terms = dict(l1=l1, ssim=ssim_loss, offset=offset_loss, pose=pose_loss)
             if aiap_nn is not None:
-                with record_function("train::aiap"):
+                with span("train::aiap", device):
                     nv = assets.num_valid
                     cano = assets.query_points[None, :nv] + res[:, :nv]
                     aiap = opt_cfg.lambda_aiap * aiap_loss(cano, world[:, :nv], aiap_nn)
                 loss = loss + aiap
                 terms["aiap"] = aiap
         if lpips_fn is not None:
-            with record_function("train::lpips"):
+            with span("train::lpips", device):
                 # at gate 0 the term is only logged: it leaves no gradient
                 with torch.set_grad_enabled(lpips_on):
                     vgg = opt_cfg.lambda_lpips * lpips_fn((images - 0.5) * 2, (gt - 0.5) * 2)
                 if lpips_on:
                     loss = loss + sc.lpips_gate * vgg
                 terms["vgg"] = vgg
-        with record_function("train::backward"):
+        with span("train::backward", device):
             loss.backward()
+            mark("train::decode_bwd", True, device)
         if grp is not None:
-            with record_function("train::all_reduce"):
+            with span("train::all_reduce", device):
                 mesh.all_reduce_grads(net.parameters(), grp)
 
-        with record_function("train::optimizer"):
+        with span("train::optimizer", device):
             # the epoch gate of pose optimization: zero gradients touch no row
             for p in embeddings:
                 if p.grad is not None:
@@ -377,10 +386,11 @@ def make_train_steps(
                     pose_opt_gate: float, lpips_gate: float = 0.0):
         if len(feeds) != steps:
             raise ValueError(f"{len(feeds)} feeds for a dispatch of {steps} steps")
-        with record_function("train::dispatch"):
+        with span("train::feeds", device):
             fill(feeds)
             sc.write(state.iteration, w_rgl, pose_opt_gate, lpips_gate)
-            key = (pose_opt_gate != 0.0, lpips_gate != 0.0)
+        key = (pose_opt_gate != 0.0, lpips_gate != 0.0)
+        with span("train::replay", device):
             if graph_cls is None:
                 terms, images = run(state, key[1])
             elif key in graphs:
@@ -400,7 +410,7 @@ def make_train_steps(
                       f"{'on' if key[0] else 'off'}, LPIPS gate {'on' if key[1] else 'off'}) "
                       f"in {graphs[key].capture_s:.2f} s, launches per replay "
                       f"{graphs[key].launches.per_replay}")
-            state.iteration += steps
+        state.iteration += steps
         return terms, images
 
     return train_steps

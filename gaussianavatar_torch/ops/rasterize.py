@@ -11,13 +11,13 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from gaussianavatar_torch.ops.camera import Camera
 from gaussianavatar_torch.ops.projection import ProjectedGaussians, project_gaussians
 from gaussianavatar_torch.ops.rasterize_ref import rasterize_brute
 from gaussianavatar_torch.ops.rasterize_tile import rasterize_views_binned
 from gaussianavatar_torch.ops.sh import sh_to_colors
+from gaussianavatar_torch.utils.spans import span
 
 
 class RasterizeConfig(NamedTuple):
@@ -71,7 +71,7 @@ def rasterize_views(
     opacities = opacities.reshape(-1, N)
     if opacities.shape[0] != B:
         opacities = opacities.expand(B, N)
-    with record_function("render::projection"):
+    with span("render::projection", means3d.device):
         projs = project_gaussians(
             means3d, scales, rotations, world_view_transforms, full_proj_transforms,
             tan_fovx, tan_fovy, height, width,

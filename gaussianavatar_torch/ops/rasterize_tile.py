@@ -34,12 +34,12 @@ import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from gaussianavatar_torch.ops.projection import ProjectedGaussians
 from gaussianavatar_torch.ops.rasterize_ref import (
     ALPHA_MAX, ALPHA_MIN, T_EPS, blend_pixels, gate_terms,
 )
+from gaussianavatar_torch.utils.spans import span
 
 _INT32_MAX = 2**31 - 1
 
@@ -622,10 +622,10 @@ class BlendTiles(torch.autograd.Function):
         # graph can record the step. Unbinned slots sort last; H-bwd walks
         # only the tiles' ranges and leaves their rows 0, which the scatter
         # adds in as +0
-        with record_function("render::blend_bwd"):
+        with span("render::blend_bwd", packed.device):
             pair = blend_tiles_bwd(packed, sorted_vals, offsets, *ctx.geometry, T, ncon,
                                    g_color.contiguous(), g_T.contiguous(), caps)
-        with record_function("render::scatter_bwd"):
+        with span("render::scatter_bwd", packed.device):
             d_packed = scatter_pair_grads(pair, sorted_vals, packed.shape[0])
         return d_packed, None, None, None, None, None, None
 
@@ -661,12 +661,12 @@ def rasterize_views_binned(
     txn, tyn = _cdiv(width, ts), _cdiv(height, ts)
     n_tiles = txn * tyn
 
-    with record_function("render::binning"):
+    with span("render::binning", colors.device):
         ctx = _bin_gaussians(projs, colors, opacities, height, width, ts, MW, MW,
                              key_views=config.key_views)
     if caps is not None:
         caps = caps.to(torch.int32).contiguous()
-    with record_function("render::blend"):
+    with span("render::blend", colors.device):
         color_t, T_t, _, _ = BlendTiles.apply(ctx.packed, ctx.sorted_vals, ctx.offsets, caps,
                                               txn, ts, n_tiles)
     overflow = ctx.m_dropped.to(torch.int64)
@@ -674,7 +674,7 @@ def rasterize_views_binned(
         full = ctx.full_counts.to(torch.int64)
         overflow = overflow + (full - torch.minimum(full, caps.to(torch.int64).clamp_min(0))).sum()
 
-    with record_function("render::untile"):
+    with span("render::untile", colors.device):
         img = torch.stack([_untile(c, txn, tyn, ts, height, width)
                            for c in color_t.reshape(B, n_tiles, 3, ts * ts)])
         T_img = torch.stack([_untile(t, txn, tyn, ts, height, width)[0]

@@ -34,10 +34,11 @@ the AIAP regulariser over a k=5 neighbour graph of the canonical points.
 `--profile_dir` runs `--max_steps` steps (20 when not given) under
 `torch.profiler` (CPU and, on the card, CUDA activities) and writes a
 Chrome trace into the directory, with the step's `train::*` and
-`render::*` ranges (with `--dp`, rank 0's). The run is traced as
-configured: a group of `--steps_per_dispatch` steps replayed as a CUDA
-graph shows as the graph's kernels, without the ranges (pass
-`--steps_per_dispatch 1` for them at every step).
+`render::*` spans (with `--dp`, rank 0's; utils/spans.py). The run is
+traced as configured: a group of `--steps_per_dispatch` steps replayed as
+a CUDA graph shows its spans on the device only, as the begin and end
+marker kernels `ga_span__<span>__b` / `__e` around each span's kernels
+(utils/spans.device_spans pairs them).
 
     python -m gaussianavatar_torch.train ... [--init torch]
     python -m gaussianavatar_torch.train ... [--ragged 0 --auto_cascade 0]

@@ -29,6 +29,10 @@ SOURCES = {"blend_fwd": "csrc/blend_fwd.cu", "blend_bwd": "csrc/blend_bwd.cu",
            "decoder_stats": "csrc/decoder_stats.cu",
            "decoder_stage_fwd": "csrc/decoder_stage_fwd.cu",
            "decoder_stage_bwd": "csrc/decoder_stage_bwd.cu"}
+# the span markers (utils/spans.py), built and loaded as the kernels are but
+# no kernel of the main path: outside SOURCES, so LAUNCHES does not count them
+MARKERS = "span_marks"
+_BUILT = {**SOURCES, MARKERS: "csrc/span_marks.cu"}
 
 # kernel name -> launches so far in this process. Each wrapper adds one
 # where it launches its kernel, and nowhere else, so a run can show which
@@ -103,7 +107,7 @@ def nvcc_path() -> str:
 def _lib_path(name: str) -> str:
     """The library's path, named by a hash of its source, the headers beside
     it and the flags."""
-    src = join(_PKG, SOURCES[name])
+    src = join(_PKG, _BUILT[name])
     csrc = dirname(src)
     h = hashlib.sha256(" ".join(nvcc_flags(name)).encode())
     for path in [src] + sorted(join(csrc, n) for n in os.listdir(csrc) if n.endswith(".cuh")):
@@ -112,9 +116,10 @@ def _lib_path(name: str) -> str:
     return join(BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so")
 
 
-def build_all(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, BuildResult]:
-    """Compile every named kernel that is not built yet, one nvcc process per
-    source, all started together. Raises with nvcc's output on failure."""
+def build_all(names: Iterable[str] = tuple(_BUILT)) -> Dict[str, BuildResult]:
+    """Compile every named library (the kernels and the span markers) that is
+    not built yet, one nvcc process per source, all started together. Raises
+    with nvcc's output on failure."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs, results = {}, {}
     for name in names:
@@ -123,7 +128,7 @@ def build_all(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, BuildResult]:
             results[name] = BuildResult(out, 0.0, "")
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *nvcc_flags(name), "-o", tmp, join(_PKG, SOURCES[name])]
+        cmd = [nvcc_path(), *nvcc_flags(name), "-o", tmp, join(_PKG, _BUILT[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        out, tmp, time.perf_counter())

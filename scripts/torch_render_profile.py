@@ -3,14 +3,15 @@
 Builds the avatar and batches of chip_smoke.py (`make_slice`: query posmap
 512, bf16 decoder, 4 frames of 1024^2 per call) and runs its renderer, the
 `make_renderer` path itself, under torch.profiler. The stages are the
-`render::*` ranges that engine/inference.py, ops/rasterize.py and
-ops/rasterize_tile.py open around pose_gaussians, the attributes, the
-projection, the binning, the blend and the untile. Per call it prints, for
-each stage, the host time inside the range and the device time of the
-kernels launched in it; then the wall time of a call, the device-busy share
-(kernel time over wall) and the kernels by device time. `--fused_decoder`
-renders through the fused decoder (its H-dfwd stages; the decode has no
-range of its own, so its kernels show by name).
+program's spans (utils/spans.py), read on the device from their marker
+kernels: `render::call` around each call, and inside it the `render::*`
+spans that engine/inference.py, ops/rasterize.py and ops/rasterize_tile.py
+open around pose_gaussians, the attributes, the projection, the binning,
+the blend and the untile (the canonical decode, `render::decode`, runs once
+at set-up). Per call it prints each span's device busy time (its kernels,
+copies and fills) and the time inside it in which the device ran nothing;
+then the wall time of a call, the device-busy share and the kernels by
+device time. `--fused_decoder` renders through the fused decoder.
 
     python3 scripts/torch_render_profile.py [--calls 8] [--fused_decoder]
 """
@@ -20,46 +21,11 @@ import os
 import subprocess
 import sys
 import time
-from collections import defaultdict
 
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
-
-
-def range_times(events, prefixes, since=None):
-    """Per `record_function` range whose name starts with one of `prefixes`:
-    host ms (time inside the range on the host) and device ms (the kernels
-    that start inside the range's device-side span; without such spans, the
-    kernels the profiler linked to the range). Also device ms by kernel name
-    and a note of how device time was attributed. Only events that start at
-    or after `since` (profiler microseconds) count. A kernel launched
-    through ctypes (H-fwd, H-bwd) is linked to no torch op, hence the spans."""
-    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    host, linked = defaultdict(float), defaultdict(float)
-    spans = defaultdict(list)
-    kernels, kernel_times = defaultdict(float), []
-    for e in events:
-        if since is not None and e.time_range.start < since:
-            continue
-        if e.name.startswith(prefixes):
-            if e.device_type == cpu:
-                host[e.name] += e.cpu_time_total / 1e3
-                linked[e.name] += e.device_time_total / 1e3
-            elif e.device_type == cuda:
-                spans[e.name].append((e.time_range.start, e.time_range.end))
-        elif e.device_type == cuda:
-            kernels[e.name] += e.self_device_time_total / 1e3
-            kernel_times.append((e.time_range.start, e.self_device_time_total / 1e3))
-    dev = {}
-    for name in host:
-        dev[name] = sum(ms for t, ms in kernel_times
-                        if any(a <= t < b for a, b in spans[name])) if spans[name] \
-            else linked[name]
-    how = "kernels inside each range's device span" if any(spans.values()) \
-        else "kernels linked to each range"
-    return host, dev, kernels, how
 
 
 def main():
@@ -72,6 +38,7 @@ def main():
         print("torch_render_profile: needs CUDA", file=sys.stderr)
         return 2
     import chip_smoke
+    from gaussianavatar_torch.utils.spans import device_spans, span_times, trace_ops
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
@@ -95,15 +62,19 @@ def main():
             s.render(b, s.iteration)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    host, dev, kernels, how = range_times(prof.events(), ("render::",))
+    ops = trace_ops(prof)
+    times = span_times(ops)
+    kernels = {}
+    for name, _, d in ops:
+        kernels[name] = kernels.get(name, 0.0) + d / 1e3
     busy_ms = sum(kernels.values())
+    calls = device_spans(ops)["render_call"]
     print(f"stage-1 render ({'fused' if args.fused_decoder else 'reference'} decoder), "
-          f"{s.B} frames of {s.H}x{s.W} per call, {n} calls under "
+          f"{s.B} frames of {s.H}x{s.W} per call, {len(calls)} calls under "
           f"torch.profiler, per call, on {card}:")
-    print(f"  {'range':26s} {'host ms':>9s} {'device ms':>10s}  (device: {how})")
-    for name in sorted(host, key=lambda k: -dev[k]):
-        print(f"  {name:26s} {host[name] / n:9.3f} {dev[name] / n:10.3f}")
-    print(f"  {'sum of ranges':26s} {sum(host.values()) / n:9.3f} {sum(dev.values()) / n:10.3f}")
+    print(f"  {'span':26s} {'busy ms':>9s} {'idle ms':>9s}")
+    for name, (_, busy, idle) in sorted(times.items(), key=lambda kv: -kv[1][1]):
+        print(f"  {name:26s} {busy / 1e3 / n:9.3f} {idle / 1e3 / n:9.3f}")
     print(f"  call: {wall_ms / n:.3f} ms wall under the profiler, {plain_call_ms:.3f} ms "
           f"without it ({s.B * 1000 / plain_call_ms:.1f} frames/s); device busy "
           f"{busy_ms / n:.3f} ms per call, {100 * busy_ms / wall_ms:.1f}% of the profiled wall")
